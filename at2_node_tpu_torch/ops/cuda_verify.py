@@ -1,10 +1,10 @@
 """The hand-written CUDA ed25519 verify kernel: build, bind and launch.
 
 Counterpart of ``at2_node_tpu/ops/pallas_verify.py``: the kernel in
-``csrc/ed25519_verify.cu`` (per-lane math in ``csrc/ed25519_lane.cuh``)
-replaces ``_verify_tile`` for Hopper. It is compiled with nvcc for
-``sm_90a`` into ``at2_node_tpu_torch/build/`` at first use, from the
-sources in the package only, and loaded with ctypes.
+``csrc/ed25519_verify.cu`` (four threads per signature; the math in
+``csrc/ed25519_lane.cuh``) replaces ``_verify_tile`` for Hopper. It is
+compiled with nvcc for ``sm_90a`` into ``at2_node_tpu_torch/build/`` at
+first use, from the sources in the package only, and loaded with ctypes.
 
 :func:`verify_packed` is the wrapper: for a tensor on the CPU it runs the
 plain PyTorch version (``ops.ed25519.verify_packed``); for a CUDA tensor it
@@ -36,22 +36,36 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-# Field multiplications per signature in the kernel and in the plain
-# version, which follow the same formulas (a CPU test counts the plain
-# version's): two decompressions (13 + 262 for the square-root chain each),
-# the table of -A (7 doublings x 8 + 7 additions x 9), 64 Straus windows
-# (4 doublings + 2 additions each) and the final compare (2).
-FIELD_MULS_PER_LANE = 2 * (13 + 262) + (7 * 8 + 7 * 9) + 64 * (4 * 8 + 2 * 9) + 2
-# Of those, squarings: 255 per decompression and 4 per doubling (7 for the
+# Four threads (a quad) verify one signature (csrc/ed25519_lane.cuh).
+THREADS_PER_SIGNATURE = 4
+
+# What one signature's verification uses in the kernel, once per signature
+# (not the quad's repeated or discarded work); the g++ build of the
+# kernel's math counts them (tests/test_torch_kernel_host.py). Field
+# multiplications: two decompressions (12 + 262 for the square-root chain
+# each) and -A's T (1); the cached table of multiples 1..8 of -A (4
+# doublings and 3 additions of 8, and one conversion to cached form of 1
+# per entry); the carry digits' addition (8); 64 Straus windows of h (4
+# doublings of 8 and an addition of a cached entry of 8), 32 additions for
+# the radix-256 digits of S (8 each); and the final compare (2).
+FIELD_MULS_PER_LANE = (
+    2 * (12 + 262) + 1 + (4 * 8 + 3 * 8 + 8) + 8 + 64 * (4 * 8 + 8) + 32 * 8 + 2
+)
+# Of those, squarings: 255 per decompression and 4 per doubling (4 for the
 # table, 256 in the Straus loop).
-FIELD_SQUARES_PER_LANE = 2 * 255 + (7 + 256) * 4
-# What verification needs, not what this kernel issues (it squares through
-# its general multiply): a multiplication is 100 32x32->64-bit products
-# (IMAD.WIDE), a squaring 55 (ref10 fe_sq), each two int32 multiply-add
-# issue slots.
+FIELD_SQUARES_PER_LANE = 2 * 255 + (4 + 256) * 4
+# A multiplication is 100 32x32->64-bit products (IMAD.WIDE), a squaring 55
+# (ref10's fe_sq), each two int32 multiply-add issue slots.
 INT32_MULADD_SLOTS_PER_LANE = 2 * (
     100 * (FIELD_MULS_PER_LANE - FIELD_SQUARES_PER_LANE) + 55 * FIELD_SQUARES_PER_LANE
 )
+# The plain version (ops/ed25519.py verify_packed) runs other formulas
+# (ops/edwards.py): decompressions of 13 + 262, a table of multiples 0..15
+# by 7 doublings and 7 additions of 9 (its addition multiplies by 2d), 64
+# windows of 4 doublings and 2 additions of 9, and squares through its
+# general multiply. A CPU test counts these.
+PLAIN_FIELD_MULS_PER_LANE = 2 * (13 + 262) + (7 * 8 + 7 * 9) + 64 * (4 * 8 + 2 * 9) + 2
+PLAIN_FIELD_SQUARES_PER_LANE = 2 * 255 + (7 + 256) * 4
 
 # Kernel launches made through verify_packed (not the plain version's runs).
 launches = 0
@@ -92,12 +106,28 @@ def build() -> ctypes.CDLL:
         return lib
 
 
+def _cached(x: int, y: int) -> np.ndarray:
+    """Affine (x, y) -> cached form (y - x, y + x, 2z, 2d t) with z = 1."""
+    return np.stack([
+        fe.int_to_limbs(y - x), fe.int_to_limbs(y + x), fe.int_to_limbs(2),
+        fe.int_to_limbs(2 * fe.D_INT * x * y),
+    ])
+
+
 def lane_consts() -> np.ndarray:
-    """The int32 constants the lane math reads (``ed25519_lane.cuh``
-    ``CONST_*``): d, 2d, sqrt(-1), then the base table (16, 4, 10)."""
-    return np.concatenate(
-        [fe.D, fe.D2, fe.SQRT_M1, ed.BASE_TABLE.reshape(-1)]
-    ).astype(np.int32)
+    """The int32 constants the kernel reads (``ed25519_lane.cuh``
+    ``CONST_*``): d, 2d, sqrt(-1), the base point's affine x and y, then
+    multiples 0..128 of B in cached form, limb-major within an entry:
+    (129, 10, 4), component last."""
+    points, acc = [], (0, 1)
+    for _ in range(129):
+        points.append(acc)
+        acc = ed.affine_add_ints(acc, (ed.BX_INT, ed.BY_INT))
+    table = np.stack([_cached(x, y) for x, y in points])
+    return np.concatenate([
+        fe.D, fe.D2, fe.SQRT_M1, fe.int_to_limbs(ed.BX_INT), fe.int_to_limbs(ed.BY_INT),
+        table.transpose(0, 2, 1).reshape(-1),
+    ]).astype(np.int32)
 
 
 @functools.lru_cache(maxsize=None)

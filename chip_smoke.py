@@ -7,8 +7,10 @@ Phases (any failure raises, the exit code is non-zero and no result line
 is printed):
 
 1. Device report: torch, CUDA, the card's name and power limit.
-2. Build: the CUDA kernel (nvcc, sm_90a) and the native host prep (g++),
-   both from the sources in this checkout, built side by side.
+2. Build: the CUDA kernel (nvcc, sm_90a, always rebuilt) and the native
+   host prep (g++), both from the sources in this checkout, built side by
+   side; the kernel's registers, stack frame and spill bytes are read from
+   ptxas's report.
 3. Kernel vs plain: about 1,000 signed transfers plus the RFC 8032 TEST 1
    vector and eight tamper classes, tiled into batches of every bucket the
    main path launches (65,536, 8,192, 4,096, 1,024, 256 and 64 lanes), a
@@ -27,8 +29,9 @@ is printed):
    Every verdict is checked, the kernel's launch count (set to 0 just
    before each run) must rise, and every shape a run launched must be one
    that phase 3 checked.
-5. One JSON line describing the kernel, then the result line
-   ``{"ok": true, "device": {...}}``.
+5. One JSON line describing the kernel (its times and bound at every
+   shape, both main-path runs, the ptxas figures and the threads per
+   signature), then the result line ``{"ok": true, "device": {...}}``.
 
 Runs only on a CUDA device and only from a checkout of the repository.
 """
@@ -39,6 +42,7 @@ import argparse
 import asyncio
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -104,9 +108,29 @@ def device_report(torch) -> str:
 # -- phase 2 ---------------------------------------------------------------
 
 
-def build_all() -> None:
+def parse_ptxas(log_text: str, kernel: str) -> dict:
+    """Registers, stack frame and spill bytes of `kernel`'s entry function
+    from nvcc's ``-Xptxas -v`` output."""
+    entry = next((m for m in re.finditer(r"Compiling entry function '([^']+)'", log_text)
+                  if kernel in m.group(1)), None)
+    check(entry is not None, f"no ptxas report for {kernel}")
+    rest = log_text[entry.end():]
+    regs = re.search(r"Used (\d+) registers", rest)
+    frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", rest)
+    check(regs is not None and frame is not None, f"ptxas report for {kernel} not understood")
+    return {"registers": int(regs.group(1)), "stack_bytes": int(frame.group(1)),
+            "spill_bytes": int(frame.group(2)), "spill_load_bytes": int(frame.group(3))}
+
+
+def build_all() -> dict:
     from at2_node_tpu_torch.native import prep
+    from at2_node_tpu_torch.native._build import BUILD_DIR
     from at2_node_tpu_torch.ops import cuda_verify
+
+    # always build from the sources, so ptxas reports on what runs
+    lib = os.path.join(BUILD_DIR, cuda_verify.LIB_NAME)
+    if os.path.exists(lib):
+        os.remove(lib)
 
     def timed(fn):
         t0 = time.perf_counter()
@@ -122,8 +146,13 @@ def build_all() -> None:
     for line in cuda_verify.build_log.splitlines():
         if "registers" in line or "spill" in line:
             log("  ptxas:", line.strip())
+    ptxas = parse_ptxas(cuda_verify.build_log, "ed25519_verify_kernel")
+    ptxas["build_s"] = kern_s
+    log(f"kernel: {ptxas['registers']} registers, {ptxas['stack_bytes']} bytes stack frame, "
+        f"{ptxas['spill_bytes']} bytes spill stores")
     check(native_ok, "native host prep did not build with g++")
     log("prep path: native")
+    return ptxas
 
 
 # -- test material ---------------------------------------------------------
@@ -447,7 +476,7 @@ def main() -> None:
     import torch
 
     card = device_report(torch)
-    build_all()
+    ptxas = build_all()
     rng = np.random.default_rng(args.seed)
     t0 = time.perf_counter()
     mat = Material(args.seed)
@@ -456,6 +485,7 @@ def main() -> None:
         f"signed in {time.perf_counter() - t0:.1f} s")
     kp = kernel_vs_plain(torch, mat, rng)
     mp = asyncio.run(main_path(mat, rng))
+    from at2_node_tpu_torch.ops import cuda_verify
 
     runs = {}
     for name, run in mp.items():
@@ -482,6 +512,8 @@ def main() -> None:
         "bound_ms": top["bound_ms"],
         "bound_by": top["bound_by"],
         "library_ms": None,
+        "threads_per_signature": cuda_verify.THREADS_PER_SIGNATURE,
+        **ptxas,
         "by_lanes": {str(n): r for n, r in kp["by_lanes"].items()},
         "main_path": runs,
         "card": card,

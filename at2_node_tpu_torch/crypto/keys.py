@@ -1,10 +1,10 @@
-"""ed25519 signing keys: :class:`SignKeyPair` and :func:`verify_one`.
+"""ed25519 signing keys and X25519 network (channel) keys.
 
-Counterpart of the signing half of ``at2_node_tpu/crypto/keys.py`` (the
-X25519 channel keys come with the network layer). Single signatures use the
-``cryptography`` wheel (OpenSSL) when it is installed, else the pure-Python
-RFC 8032 transcription in ``crypto/_fallback.py`` (same algorithm, same
-bytes). Keys are hex-encoded in config files.
+Counterpart of ``at2_node_tpu/crypto/keys.py``: :class:`SignKeyPair`,
+:func:`verify_one` and :class:`ExchangeKeyPair`. Single signatures and key
+exchanges use the ``cryptography`` wheel (OpenSSL) when it is installed,
+else the pure-Python RFC transcriptions in ``crypto/_fallback.py`` (same
+algorithms, same bytes). Keys are hex-encoded in config files.
 """
 
 from __future__ import annotations
@@ -14,7 +14,7 @@ from dataclasses import dataclass
 try:
     from cryptography.exceptions import InvalidSignature
     from cryptography.hazmat.primitives import serialization
-    from cryptography.hazmat.primitives.asymmetric import ed25519
+    from cryptography.hazmat.primitives.asymmetric import ed25519, x25519
 
     _HAVE_OPENSSL = True
     _RAW = serialization.Encoding.Raw
@@ -92,3 +92,37 @@ def verify_one(public_key: bytes, message: bytes, signature: bytes) -> bool:
         return True
     except (InvalidSignature, ValueError):
         return False
+
+
+@dataclass(frozen=True)
+class ExchangeKeyPair:
+    """X25519 keypair authenticating node<->node channels."""
+
+    private_bytes: bytes
+
+    @staticmethod
+    def random() -> "ExchangeKeyPair":
+        if not _HAVE_OPENSSL:
+            return ExchangeKeyPair(_fb.x25519_generate_seed())
+        key = x25519.X25519PrivateKey.generate()
+        return ExchangeKeyPair(key.private_bytes(_RAW, _RAW_PRIV, _NOENC))
+
+    @staticmethod
+    def from_hex(s: str) -> "ExchangeKeyPair":
+        return ExchangeKeyPair(bytes.fromhex(s))
+
+    def to_hex(self) -> str:
+        return self.private_bytes.hex()
+
+    @property
+    def public(self) -> bytes:
+        if not _HAVE_OPENSSL:
+            return _fb.x25519_public(self.private_bytes)
+        key = x25519.X25519PrivateKey.from_private_bytes(self.private_bytes)
+        return key.public_key().public_bytes(_RAW, _RAW_PUB)
+
+    def exchange(self, peer_public: bytes) -> bytes:
+        if not _HAVE_OPENSSL:
+            return _fb.x25519(self.private_bytes, peer_public)
+        key = x25519.X25519PrivateKey.from_private_bytes(self.private_bytes)
+        return key.exchange(x25519.X25519PublicKey.from_public_bytes(peer_public))

@@ -1,8 +1,11 @@
-"""The Verifier seam and the batched CUDA verifier.
+"""The Verifier seam: the CPU verifier and the batched CUDA verifier.
 
 Counterpart of ``at2_node_tpu/crypto/verifier.py``. Every signature a node
-checks goes through an async :class:`Verifier`. :class:`CudaBatchVerifier`
-is the port of ``TpuBatchVerifier``'s per-signature path: it accumulates
+checks goes through an async :class:`Verifier`. :class:`CpuVerifier` checks
+each signature on the CPU (OpenSSL, on a thread pool or in one native bulk
+call), as the reference's ``CpuVerifier`` does on its per-signature route.
+:class:`CudaBatchVerifier` is the port of ``TpuBatchVerifier``'s
+per-signature path: it accumulates
 requests, pads a flush to a bucket of its ladder, and runs each batch
 through a three-stage pipeline (host prep and upload, kernel launch,
 completion) on three executor threads, so consecutive batches overlap. A
@@ -10,16 +13,22 @@ flush goes out when the queue reaches ``batch_size`` or when the oldest
 request has waited ``max_delay``, whichever comes first; a backlog deeper
 than ``batch_size`` coalesces into the largest bucket it can fill.
 
-Random-linear-combination (RLC) verification is not ported yet: ``mode``
-takes ``per_sig``, and ``auto`` without ``rlc_min_batch`` (which on the
-reference's device path never routes a flush to RLC either). Anything that
-would route to RLC raises ``NotImplementedError``.
+Random-linear-combination (RLC) verification is not ported yet (ROADMAP.md,
+queue 1, item 8). ``CudaBatchVerifier`` takes ``mode="per_sig"``, and
+``auto`` without ``rlc_min_batch`` (which on the reference's device path
+never routes a flush to RLC either). ``CpuVerifier`` takes ``per_sig``
+only, since the reference's CPU ``auto`` routes to RLC from 128 signatures;
+its default mode is therefore ``per_sig`` where the reference's is
+``auto``, as is ``VerifierConfig.mode``'s (``node/config.py:78``), which the
+node slice settles. Anything that would route to RLC raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import asyncio
 import contextlib
+import os
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from typing import List, Protocol, Sequence, Tuple
@@ -30,13 +39,13 @@ import torch
 from ..obs.registry import Histogram
 from ..ops import cuda_verify
 from ..ops import ed25519 as kernel
+from .keys import verify_one
 
 _MODE_CODES = {"per_sig": 0, "rlc": 1, "auto": 2}
 
 _RLC_NOT_PORTED = (
-    "RLC verification is not ported yet (ROADMAP.md, queue 1: "
-    "ops/aggregate.py -> certificate and RLC verify); use mode='per_sig', "
-    "or 'auto' without rlc_min_batch"
+    "RLC verification is not ported yet (ROADMAP.md, queue 1, item 8: "
+    "ops/aggregate.py -> certificate and RLC verify); use mode='per_sig'"
 )
 
 
@@ -59,6 +68,90 @@ class Verifier(Protocol):
 
     def stats(self) -> dict:
         ...
+
+
+class CpuVerifier:
+    """Per-signature CPU verification on a thread pool (the reference's
+    execution model: `num_cpus` broadcast workers each verifying inline,
+    at2-node/src/bin/server/rpc.rs:125). Verdicts are OpenSSL's (or the
+    RFC 8032 fallback's), as ``verify_one`` gives them. Per-sig only:
+    ``mode`` other than ``per_sig`` raises ``NotImplementedError``."""
+
+    def __init__(self, max_workers: int | None = None, mode: str = "per_sig") -> None:
+        if mode not in _MODE_CODES:
+            raise ValueError(f"unknown verifier mode: {mode!r}")
+        if mode != "per_sig":
+            raise NotImplementedError(_RLC_NOT_PORTED)
+        self.mode = mode
+        self._pool = ThreadPoolExecutor(max_workers=max_workers)
+        self._max_workers = self._pool._max_workers
+        self.signatures_verified = 0
+
+    def stats(self) -> dict:
+        return {
+            "signatures": self.signatures_verified,
+            "mode": _MODE_CODES[self.mode],
+            "mode_name": self.mode,
+        }
+
+    async def warmup(self) -> None:
+        """Build and load the native ingest library off the event loop
+        (the bulk-verify path uses it)."""
+        from ..native.ingest import ingest_available
+
+        await asyncio.get_running_loop().run_in_executor(self._pool, ingest_available)
+
+    async def verify(self, public_key: bytes, message: bytes, signature: bytes) -> bool:
+        loop = asyncio.get_running_loop()
+        self.signatures_verified += 1
+        return await loop.run_in_executor(
+            self._pool, verify_one, public_key, message, signature
+        )
+
+    async def verify_many(
+        self, items: Sequence[Tuple[bytes, bytes, bytes]]
+    ) -> List[bool]:
+        """Bulk path: one executor round-trip and, when the native ingest
+        library is built, one C call for the whole chunk: OpenSSL runs on
+        native threads with the GIL released. Else per-slice Python
+        verification on the pool."""
+        from ..native.ingest import ingest_ready_or_kick, verify_bulk_native
+
+        loop = asyncio.get_running_loop()
+        self.signatures_verified += len(items)
+        n = len(items)
+        if n == 0:
+            return []
+        # The one-C-call path has a fixed staging cost (ragged packing,
+        # the ctypes crossing) that pays off only on real batches, so
+        # small chunks stay on the slice path. ingest_ready_or_kick never
+        # builds: g++ must not run on the event loop.
+        if n >= 32 and ingest_ready_or_kick():
+            # native threads capped at the real core count: the executor's
+            # max_workers is an IO-sizing default (cpu + 4)
+            n_threads = max(1, min(self._max_workers, os.cpu_count() or 1))
+            result = await loop.run_in_executor(
+                self._pool, verify_bulk_native, items, n_threads
+            )
+            return result.tolist()
+
+        slices = min(n, self._max_workers)
+        step = (n + slices - 1) // slices
+
+        def run(chunk):
+            return [verify_one(pk, msg, sig) for pk, msg, sig in chunk]
+
+        futs = [
+            loop.run_in_executor(self._pool, run, items[i : i + step])
+            for i in range(0, n, step)
+        ]
+        out: List[bool] = []
+        for results in await asyncio.gather(*futs):
+            out.extend(results)
+        return out
+
+    async def close(self) -> None:
+        self._pool.shutdown(wait=False, cancel_futures=True)
 
 
 class _ChunkSink:
@@ -614,8 +707,11 @@ class CudaBatchVerifier:
 
 
 def make_verifier(kind: str, **kwargs) -> Verifier:
-    """Config-driven verifier selection: ``"cuda"`` is the only kind of
-    this port so far."""
+    """Config-driven verifier selection (``verifier = "cpu" | "cuda"``).
+    ``"cuda"`` never falls back to the CPU: without a GPU it raises unless
+    the caller passes ``device="cpu"``."""
+    if kind == "cpu":
+        return CpuVerifier(**kwargs)
     if kind == "cuda":
         return CudaBatchVerifier(**kwargs)
     raise ValueError(f"unknown verifier kind: {kind!r}")

@@ -21,6 +21,7 @@ import numpy as np
 logger = logging.getLogger(__name__)
 
 U8P = ctypes.POINTER(ctypes.c_uint8)
+U32P = ctypes.POINTER(ctypes.c_uint32)
 U64P = ctypes.POINTER(ctypes.c_uint64)
 
 PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -35,10 +36,12 @@ def compile_lib(
     lib_name: str,
     depends: Sequence[str] = (),
     timeout: float = 600,
+    link_args: Sequence[str] = (),
 ) -> Tuple[str, str]:
     """Compile ``sources`` (paths relative to the package) into
     ``build/lib_name`` unless it is newer than every source and header in
-    ``depends``. Returns (library path, compiler output; empty when the
+    ``depends``; ``link_args`` (``-l`` flags) follow the sources on the
+    command line, where the linker needs them. Returns (library path, compiler output; empty when the
     cached library was fresh). Raises ``OSError`` when the compiler is
     missing and ``subprocess.CalledProcessError`` when it fails."""
     srcs = [os.path.join(PACKAGE_DIR, s) for s in sources]
@@ -51,7 +54,7 @@ def compile_lib(
         return lib_path, ""
     tmp = f"{lib_path}.{os.getpid()}.tmp"
     proc = subprocess.run(
-        [*compiler, *srcs, "-o", tmp],
+        [*compiler, *srcs, *link_args, "-o", tmp],
         capture_output=True, text=True, timeout=timeout,
     )
     if proc.returncode != 0:
@@ -63,12 +66,18 @@ def compile_lib(
 
 
 def load_gxx_lib(
-    sources: Sequence[str], lib_name: str, depends: Sequence[str] = ()
+    sources: Sequence[str],
+    lib_name: str,
+    depends: Sequence[str] = (),
+    link_args: Sequence[str] = (),
 ) -> Optional[ctypes.CDLL]:
-    """g++ build and load, or None when the toolchain is missing or the
-    build fails (callers fall back to their Python path)."""
+    """g++ build and load, or None when the toolchain is missing, the build
+    or link fails, or the library does not load (callers fall back to their
+    Python path)."""
     try:
-        path, _ = compile_lib(GXX, sources, lib_name, depends, timeout=120)
+        path, _ = compile_lib(
+            GXX, sources, lib_name, depends, timeout=120, link_args=link_args
+        )
         return ctypes.CDLL(path)
     except (OSError, subprocess.SubprocessError) as exc:
         logger.warning("native build of %s failed (%s)", lib_name, exc)

@@ -7,10 +7,10 @@ Phases (any failure raises, the exit code is non-zero and no result line
 is printed):
 
 1. Device report: torch, CUDA, the card's name and power limit.
-2. Build: the CUDA kernel (nvcc, sm_90a, always rebuilt) and the native
-   host prep (g++), both from the sources in this checkout, built side by
-   side; the kernel's registers, stack frame and spill bytes are read from
-   ptxas's report.
+2. Build: the CUDA kernel (nvcc, sm_90a, always rebuilt), the native
+   host prep and the native message-plane ingest (g++), all from the
+   sources in this checkout, built side by side; the kernel's registers,
+   stack frame and spill bytes are read from ptxas's report.
 3. Kernel vs plain: about 1,000 signed transfers plus the RFC 8032 TEST 1
    vector and eight tamper classes, tiled into batches of every bucket the
    main path launches (65,536, 8,192, 4,096, 1,024, 256 and 64 lanes), a
@@ -29,8 +29,23 @@ is printed):
    Every verdict is checked, the kernel's launch count (set to 0 just
    before each run) must rise, and every shape a run launched must be one
    that phase 3 checked.
-5. One JSON line describing the kernel (its times and bound at every
-   shape, both main-path runs, the ptxas figures and the threads per
+5. The broadcast plane, twice: four port nodes in this process, each with
+   its own mesh over encrypted TCP on 127.0.0.1, ``Broadcast`` (16
+   workers, thresholds of all 3 peers), ``make_verifier("cuda")`` at the
+   node's default [verifier] table and ``Accounts``; 16 seeded clients,
+   client c submitting to node c mod 4, about 2% of the slots with a
+   tampered twin. Run A, the batched plane (the node default: slots of at
+   most 256 entries, a 5 ms window), 1,024 transfers per client; run B,
+   the per-transaction plane, 64 per client. Each node commits what it
+   delivers, retrying a transfer until its predecessor has committed.
+   Checks: every valid transfer commits on all four nodes, the ledgers
+   equal each other and the python-int replay, no tampered twin commits,
+   every verifier is on the card, dispatched batches and flushed only
+   256-lane buckets, the kernel's launch count (set to 0 just before each
+   run) equals the flushes, and ``invalid_sig`` counts the tampered twins.
+   The four nodes share one process and one GIL: the rate is a floor.
+6. One JSON line describing the kernel (its times and bound at every
+   shape, every main-path run, the ptxas figures and the threads per
    signature), then the result line ``{"ok": true, "device": {...}}``.
 
 Runs only on a CUDA device and only from a checkout of the repository.
@@ -71,6 +86,13 @@ TAMPER_CLASSES = (
     "r_flip", "s_flip", "msg_flip", "high_s", "noncanonical_y",
     "x0_sign", "wrong_len", "padding",
 )
+
+# phase 5: BASELINE config 3's net (4 nodes, 16 clients, batch_size=256)
+NET_NODES = 4
+NET_CLIENTS = 16
+NET_PER_CLIENT_BATCHED = 1024
+NET_PER_CLIENT_PER_TX = 64
+NET_DEADLINE_S = 240.0
 
 RFC8032_TEST1 = (
     "9d61b19deffd5a60ba844af492ec2cc44449c5697b326919703bac031cae7f60",
@@ -123,7 +145,7 @@ def parse_ptxas(log_text: str, kernel: str) -> dict:
 
 
 def build_all() -> dict:
-    from at2_node_tpu_torch.native import prep
+    from at2_node_tpu_torch.native import ingest, prep
     from at2_node_tpu_torch.native._build import BUILD_DIR
     from at2_node_tpu_torch.ops import cuda_verify
 
@@ -137,12 +159,16 @@ def build_all() -> dict:
         out = fn()
         return out, time.perf_counter() - t0
 
-    with ThreadPoolExecutor(max_workers=2) as pool:
+    with ThreadPoolExecutor(max_workers=3) as pool:
         kern = pool.submit(timed, cuda_verify.build)
         nat = pool.submit(timed, prep.native_available)
+        ing = pool.submit(timed, ingest.ingest_available)
         _, kern_s = kern.result()
         native_ok, nat_s = nat.result()
-    log(f"build: kernel {kern_s:.1f} s (nvcc sm_90a), native prep {nat_s:.1f} s (g++)")
+        ingest_ok, ing_s = ing.result()
+    log(f"build: kernel {kern_s:.1f} s (nvcc sm_90a), native prep {nat_s:.1f} s (g++), "
+        f"native ingest {ing_s:.1f} s (g++, libcrypto): "
+        f"{'on' if ingest_ok else 'OFF, the broadcast plane parses and tallies in python'}")
     for line in cuda_verify.build_log.splitlines():
         if "registers" in line or "spill" in line:
             log("  ptxas:", line.strip())
@@ -461,6 +487,351 @@ async def main_path(mat: Material, rng) -> dict:
     return {"stress": stress, "node_default": node}
 
 
+# -- phase 5 ---------------------------------------------------------------
+
+
+def port_modules():
+    """The classes a node of this package is built from. Every net helper
+    below takes such a namespace per node, so the same harness also builds
+    nodes of another package with the same surface."""
+    from types import SimpleNamespace
+
+    from at2_node_tpu_torch.broadcast.messages import Payload, TxBatch
+    from at2_node_tpu_torch.broadcast.stack import Broadcast
+    from at2_node_tpu_torch.crypto.keys import ExchangeKeyPair, SignKeyPair
+    from at2_node_tpu_torch.ledger.accounts import AccountModificationError, Accounts
+    from at2_node_tpu_torch.net.peers import Mesh, Peer
+    from at2_node_tpu_torch.types import ThinTransaction
+
+    return SimpleNamespace(
+        Payload=Payload, TxBatch=TxBatch, Broadcast=Broadcast,
+        ExchangeKeyPair=ExchangeKeyPair, SignKeyPair=SignKeyPair,
+        AccountModificationError=AccountModificationError, Accounts=Accounts,
+        Mesh=Mesh, Peer=Peer, ThinTransaction=ThinTransaction,
+    )
+
+
+def free_ports(n: int) -> list:
+    """n distinct free TCP ports on 127.0.0.1 (above 1024)."""
+    import socket
+
+    socks = []
+    try:
+        for _ in range(n):
+            s = socket.socket()
+            s.bind(("127.0.0.1", 0))
+            socks.append(s)
+        return [s.getsockname()[1] for s in socks]
+    finally:
+        for s in socks:
+            s.close()
+
+
+class Node:
+    """One AT2 node's broadcast plane as the node service wires it: a mesh
+    over encrypted TCP, a ``Broadcast`` verifying through its own verifier,
+    an ``Accounts`` ledger, the ingress batcher (``service.py``
+    ``_ingest``/``_flush_batch``/``_delayed_flush``) and the commit loop
+    (``_drain_to_fixpoint``: retry a transfer until its predecessor has
+    committed, then release its registry binding)."""
+
+    def __init__(self, mods, sign_kp, exch_kp, address: str, peers: list, verifier,
+                 threshold=None, workers: int = 16, batching: bool = True,
+                 max_entries: int = 256, window: float = 0.005) -> None:
+        self.m = mods
+        self.sign_kp = sign_kp
+        self.verifier = verifier
+        self.mesh = mods.Mesh(address, exch_kp, peers, on_frame=self._on_frame)
+        self.bcast = mods.Broadcast(sign_kp, self.mesh, verifier, echo_threshold=threshold,
+                                    ready_threshold=threshold, workers=workers)
+        self.accounts = mods.Accounts()
+        self.batching = batching
+        self.max_entries = max_entries
+        self.window = window
+        self._buf: list = []
+        self._flush_task = None
+        self._batch_seq = 0
+        self.batches_sent = 0
+        self._pending: dict = {}  # (sender, seq) -> delivered payload awaiting its turn
+        self.committed: dict = {}  # (sender, seq) -> content hash
+        self.consumed: list = []  # sequences a failed debit consumed
+        self.last_commit_t = 0.0
+        self.want = 0
+        self.done = asyncio.Event()
+        self._tasks: list = []
+
+    async def _on_frame(self, peer, frame: bytes) -> None:
+        await self.bcast.on_frame(peer, frame)
+
+    async def start(self) -> None:
+        await self.bcast.start()
+        await self.mesh.start()
+        self._tasks.append(asyncio.create_task(self._commit_loop()))
+
+    async def close(self) -> None:
+        for t in self._tasks + ([self._flush_task] if self._flush_task else []):
+            t.cancel()
+        await asyncio.gather(*self._tasks, return_exceptions=True)
+        await self.mesh.close()
+        await self.bcast.close()
+        await self.verifier.close()
+
+    def own(self, payload):
+        """The same payload as this node's package builds it (wire-equal)."""
+        return self.m.Payload.decode_body(payload.encode()[1:])
+
+    async def submit(self, payload) -> None:
+        """A client's SendAsset: batched into slots of at most
+        ``max_entries``, flushed on size or after ``window``; with batching
+        off, one broadcast slot per payload."""
+        if not self.batching:
+            await self.bcast.broadcast(payload)
+            return
+        self._buf.append(payload)
+        if len(self._buf) >= self.max_entries:
+            await self._flush()
+        elif self._flush_task is None or self._flush_task.done():
+            self._flush_task = asyncio.create_task(self._delayed_flush())
+
+    async def _flush(self) -> None:
+        buf, self._buf = self._buf, []
+        for lo in range(0, len(buf), self.max_entries):
+            self._batch_seq += 1
+            raw = b"".join(p.encode()[1:] for p in buf[lo:lo + self.max_entries])
+            self.batches_sent += 1
+            await self.bcast.broadcast_batch(self.m.TxBatch.create(self.sign_kp, self._batch_seq, raw))
+
+    async def _delayed_flush(self) -> None:
+        while True:
+            await asyncio.sleep(self.window)
+            await self._flush()
+            if not self._buf:
+                return
+
+    async def _commit_loop(self) -> None:
+        q = self.bcast.delivered
+        while True:
+            batch = [await q.get()]
+            while not q.empty():
+                batch.append(q.get_nowait())
+            for p in batch:
+                self._pending.setdefault(p.slot, p)
+            await self._drain()
+
+    async def _drain(self) -> None:
+        """One pass in (sender, sequence) order commits every run of
+        consecutive sequences; a sender stops at its first gap and waits
+        for the predecessor's delivery."""
+        blocked = set()
+        for key in sorted(self._pending):
+            if key[0] in blocked:
+                continue
+            p = self._pending[key]
+            try:
+                await self.accounts.transfer(p.sender, p.sequence, p.transaction.recipient,
+                                             p.transaction.amount)
+            except self.m.AccountModificationError:
+                if p.sequence > await self.accounts.get_last_sequence(p.sender):
+                    blocked.add(key[0])  # a gap: the predecessor is not here yet
+                    continue
+                self.consumed.append(key)  # a failed debit consumed the sequence
+            else:
+                self.committed[key] = p.content_hash()
+                self.last_commit_t = time.perf_counter()
+            del self._pending[key]
+            self.bcast.release_entry(*key)
+        if len(self.committed) + len(self.consumed) >= self.want:
+            self.done.set()
+
+
+async def start_net(node_mods: list, verifiers: list, rng, deadline_s: float = 60.0,
+                    **node_kw) -> list:
+    """Nodes on 127.0.0.1, fully meshed: keys from ``rng``, node i built
+    from ``node_mods[i]`` with ``verifiers[i]``; returns once every node
+    holds an encrypted channel in each direction to every peer."""
+    n = len(node_mods)
+    ports = free_ports(n)
+    seeds = [(rng.bytes(32), rng.bytes(32)) for _ in range(n)]
+    nodes = []
+    for i, m in enumerate(node_mods):
+        keys = [(m.SignKeyPair(s), m.ExchangeKeyPair(x)) for s, x in seeds]
+        peers = [m.Peer(f"127.0.0.1:{ports[j]}", keys[j][1].public, keys[j][0].public)
+                 for j in range(n) if j != i]
+        nodes.append(Node(m, keys[i][0], keys[i][1], f"127.0.0.1:{ports[i]}", peers,
+                          verifiers[i], **node_kw))
+    for node in nodes:
+        await node.start()
+    t_end = time.perf_counter() + deadline_s
+    while any(node.mesh.stats()["channels"] < 2 * (n - 1) for node in nodes):
+        check(time.perf_counter() < t_end, f"the {n}-node mesh did not connect in {deadline_s} s")
+        await asyncio.sleep(0.02)
+    return nodes
+
+
+def make_traffic(m, rng, n_clients: int, per_client: int, tamper_share: float):
+    """Client-signed transfers of ``n_clients`` seeded wallets, sequences 1
+    to ``per_client``, each to another client with an amount of 1-50 (no
+    debit can fail). About ``tamper_share`` of the slots also get a
+    tampered twin, submitted just before the valid one: another amount,
+    one signature bit flipped. Returns (per-client submissions, valid
+    transfers as (sender, seq, recipient, amount), valid content hash per
+    slot, tampered content hashes)."""
+    clients = [m.SignKeyPair(rng.bytes(32)) for _ in range(n_clients)]
+    subs = [[] for _ in range(n_clients)]
+    valid, good_hash, bad_hashes = [], {}, set()
+    for c, kp in enumerate(clients):
+        for seq in range(1, per_client + 1):
+            recipient = clients[(c + 1 + int(rng.integers(0, n_clients - 1))) % n_clients].public
+            amount = int(rng.integers(1, 51))
+            if rng.random() < tamper_share:
+                twin = m.Payload.create(kp, seq, m.ThinTransaction(recipient, amount + 1))
+                sig = bytearray(twin.signature)
+                sig[int(rng.integers(0, 64))] ^= 1 << int(rng.integers(0, 8))
+                bad = m.Payload(kp.public, seq, twin.transaction, bytes(sig))
+                subs[c].append(bad)
+                bad_hashes.add(bad.content_hash())
+            p = m.Payload.create(kp, seq, m.ThinTransaction(recipient, amount))
+            subs[c].append(p)
+            valid.append((kp.public, seq, recipient, amount))
+            good_hash[p.slot] = p.content_hash()
+    return subs, valid, good_hash, bad_hashes
+
+
+async def drive_net(nodes: list, subs: list, valid: list, deadline_s: float) -> dict:
+    """Client c submits its transfers, in order, to node c mod n; returns
+    once every node has committed every valid transfer (or fails at the
+    deadline). The wall time runs from the first submission to the last
+    commit on any node."""
+    n = len(nodes)
+    own = [[nodes[c % n].own(p) for p in mine] for c, mine in enumerate(subs)]
+    for node in nodes:
+        node.want = len(valid)
+
+    async def client(c: int) -> None:
+        node = nodes[c % n]
+        for p in own[c]:
+            await node.submit(p)
+            await asyncio.sleep(0)
+
+    t0 = time.perf_counter()
+    await asyncio.gather(*(client(c) for c in range(len(subs))))
+    try:
+        await asyncio.wait_for(asyncio.gather(*(node.done.wait() for node in nodes)), deadline_s)
+    except asyncio.TimeoutError:
+        for node in nodes:  # a commit loop that died explains the stall
+            for t in node._tasks:
+                if t.done() and not t.cancelled() and t.exception() is not None:
+                    raise t.exception()
+        counts = [len(node.committed) for node in nodes]
+        raise RuntimeError(f"chip_smoke: committed {counts} of {len(valid)} transfers "
+                           f"per node within {deadline_s} s") from None
+    wall = max(node.last_commit_t for node in nodes) - t0
+    return {"wall_s": wall, "tx_per_s": len(valid) / wall}
+
+
+async def check_ledgers(nodes: list, valid: list, good_hash: dict, bad_hashes: set) -> dict:
+    """Checks 1 and 2 of the net: equal ledgers that equal the python-int
+    replay of the valid transfers, and no tampered content committed."""
+    states = [await node.accounts.export_state() for node in nodes]
+    replay = replay_ledger(sorted(valid, key=lambda t: (t[0], t[1])))
+    for i, (node, state) in enumerate(zip(nodes, states)):
+        check(not node.consumed, f"node {i}: {len(node.consumed)} transfers failed their debit")
+        check(state == states[0], f"node {i}'s ledger differs from node 0's")
+        committed_bad = sum(1 for h in node.committed.values() if h in bad_hashes)
+        check(committed_bad == 0, f"node {i} committed {committed_bad} tampered transfers")
+        check(node.committed == good_hash, f"node {i} committed other contents than the valid ones")
+    check(states[0] == replay, "the ledgers differ from the python-int replay of the valid transfers")
+    return states[0]
+
+
+async def broadcast_net(label: str, rng, batching: bool, per_client: int, by_lanes: dict,
+                        deadline_s: float) -> dict:
+    """One run of phase 5: four port nodes over encrypted TCP on
+    127.0.0.1, each verifying through its own ``make_verifier("cuda")`` at
+    the node's default [verifier] table; 16 clients; every valid transfer
+    commits on all four ledgers."""
+    from at2_node_tpu_torch.crypto.verifier import make_verifier
+    from at2_node_tpu_torch.native import ingest
+    from at2_node_tpu_torch.ops import cuda_verify
+
+    m = port_modules()
+    verifiers, logs = [], []
+    for _ in range(NET_NODES):
+        ver = make_verifier("cuda", batch_size=256, max_delay=0.002)
+        await ver.warmup()
+        ver.recorder = FlushLog()
+        verifiers.append(ver)
+        logs.append(ver.recorder)
+    nodes = await start_net([m] * NET_NODES, verifiers, rng, batching=batching)
+    try:
+        subs, valid, good_hash, bad_hashes = make_traffic(
+            m, rng, NET_CLIENTS, per_client, TAMPER_SHARE)
+        tampered_at = Counter()
+        for c, mine in enumerate(subs):
+            tampered_at[c % NET_NODES] += sum(1 for p in mine if p.content_hash() in bad_hashes)
+        for log_ in logs:
+            log_.flushes.clear()
+        sigs0 = [v.signatures_verified for v in verifiers]
+        cuda_verify.launches = 0
+        run = await drive_net(nodes, subs, valid, deadline_s)
+        launches = cuda_verify.launches
+        state = await check_ledgers(nodes, valid, good_hash, bad_hashes)
+
+        per_node = []
+        for i, (node, ver, log_) in enumerate(zip(nodes, verifiers, logs)):
+            buckets = [ver._bucket_for(min(take, depth)) for take, depth, _ in log_.flushes]
+            stats = ver.stats()
+            check(ver.device.type == "cuda", f"node {i}'s verifier is on {ver.device}")
+            check(stats["batches"] > 0, f"node {i}'s verifier dispatched no batch")
+            check(set(buckets) == {256}, f"node {i} flushed buckets {sorted(set(buckets))}")
+            invalid = node.bcast.stats["invalid_sig"]
+            # a tampered batch entry reaches every node; a tampered
+            # per-transaction payload only the node it was submitted to
+            need = len(bad_hashes) if batching else tampered_at[i]
+            check(invalid >= need, f"node {i} counted {invalid} invalid signatures, expected >= {need}")
+            per_node.append({
+                "signatures": ver.signatures_verified - sigs0[i], "flushes": len(buckets),
+                "batches": stats["batches"], "batch_occupancy": stats["batch_occupancy"],
+                "invalid_sig": invalid, "slots_sent": node.batches_sent,
+                "native_readers": node.mesh.stats()["native_readers"],
+                "stage_histograms": ver.stage_histograms(),
+            })
+        flushes = sum(p["flushes"] for p in per_node)
+        check(launches > 0, f"{label}: ran without launching the kernel")
+        check(launches == flushes, f"{label}: {flushes} flushes but {launches} launches")
+        share = flushes * by_lanes[256]["ms"] / (1e3 * run["wall_s"])
+        native = ingest.ingest_ready()
+        log(f"{label}: {len(valid)} transfers ({len(bad_hashes)} tampered twins) from "
+            f"{NET_CLIENTS} clients committed on all {NET_NODES} nodes in {run['wall_s']:.3f} s "
+            f"= {run['tx_per_s']:,.0f} tx/s; {launches} kernel launches, kernel busy "
+            f"{100 * share:.1f}% of the wall time (phase 3 times); {len(state)} accounts, ledgers "
+            f"equal to each other and to the replay")
+        log(f"{label}: native ingest library {'on' if native else 'OFF (python fallback)'}, "
+            f"native readers {[p['native_readers'] for p in per_node]} per node; the four nodes "
+            f"share one process and one GIL, so the rate is a floor for a 4-node net")
+        for i, p in enumerate(per_node):
+            log(f"{label} node {i}: {p['signatures']} signatures verified, {p['batches']} batches, "
+                f"occupancy {p['batch_occupancy']:.3f}, invalid_sig {p['invalid_sig']}, "
+                f"{p['slots_sent']} batch slots sent")
+            log(f"{label} node {i} stage histograms:", json.dumps(p.pop("stage_histograms"), sort_keys=True))
+        return {"launches": launches, "tx_per_s": run["tx_per_s"], "wall_s": run["wall_s"],
+                "transfers": len(valid), "tampered": len(bad_hashes), "kernel_busy_share": share,
+                "native_ingest": native, "nodes": per_node}
+    finally:
+        for node in nodes:
+            await node.close()
+
+
+async def net_path(seed: int, by_lanes: dict) -> dict:
+    rng = np.random.default_rng(seed + 5)
+    return {
+        "net_batched": await broadcast_net(
+            "net (batched plane)", rng, True, NET_PER_CLIENT_BATCHED, by_lanes, NET_DEADLINE_S),
+        "net_per_tx": await broadcast_net(
+            "net (per-transaction plane)", rng, False, NET_PER_CLIENT_PER_TX, by_lanes, NET_DEADLINE_S),
+    }
+
+
 def device_share(run: dict, by_lanes: dict) -> float:
     """Kernel time on the card over the run's wall time, from phase 3's
     per-bucket kernel times (device clock) and the run's flush buckets."""
@@ -485,6 +856,7 @@ def main() -> None:
         f"signed in {time.perf_counter() - t0:.1f} s")
     kp = kernel_vs_plain(torch, mat, rng)
     mp = asyncio.run(main_path(mat, rng))
+    net = asyncio.run(net_path(args.seed, kp["by_lanes"]))
     from at2_node_tpu_torch.ops import cuda_verify
 
     runs = {}
@@ -497,6 +869,7 @@ def main() -> None:
             "wall_s": run["wall_s"], "kernel_busy_share": share,
             "flush_buckets": {str(b): c for b, c in sorted(Counter(run["buckets"]).items())},
         }
+    runs.update(net)
     top = kp["by_lanes"][65536]
     kernels = {"kernels": [{
         "name": "ed25519_verify",

@@ -221,9 +221,58 @@ async def test_rlc_modes_and_other_kinds_raise():
         CudaBatchVerifier(device="cpu", mode="auto", rlc_min_batch=128)
     with pytest.raises(ValueError):
         CudaBatchVerifier(device="cpu", mode="fast")
-    for kind in ("cpu", "tpu", "pool"):
+    for kind in ("tpu", "pool"):
         with pytest.raises(ValueError):
             make_verifier(kind, device="cpu")
+    # the CPU verifier is per-sig only: the reference's auto routes to RLC
+    for mode in ("auto", "rlc"):
+        with pytest.raises(NotImplementedError, match="item 8"):
+            make_verifier("cpu", mode=mode)
     ver = CudaBatchVerifier(device="cpu", mode="per_sig", rlc_min_batch=128)
     assert ver.stats()["mode_name"] == "per_sig"
     await ver.close()
+
+
+def _cpu_items(n, seed=5):
+    """n seeded items; of every three, one has a flipped signature bit and
+    one a changed message."""
+    rng = np.random.default_rng(seed)
+    keys = [SignKeyPair(rng.bytes(32)) for _ in range(4)]
+    items = []
+    for i in range(n):
+        kp, msg = keys[i % 4], rng.bytes(40)
+        sig = kp.sign(msg)
+        if i % 3 == 1:
+            j = i % 64
+            sig = sig[:j] + bytes([sig[j] ^ 1]) + sig[j + 1:]
+        elif i % 3 == 2:
+            msg += b"!"
+        items.append((kp.public, msg, sig))
+    return items
+
+
+@pytest.mark.parametrize("n", [1, 31, 32, 200])
+@pytest.mark.parametrize("native", [True, False])
+async def test_cpu_verifier_matches_the_reference_per_sig(n, native, monkeypatch):
+    """The per-signature CPU verifier on both of its routes (one native
+    OpenSSL call from 32 items, else slices of ``verify_one`` on the pool)
+    gives the reference CpuVerifier's verdicts."""
+    from at2_node_tpu.crypto.verifier import CpuVerifier as RefCpuVerifier
+    from at2_node_tpu_torch.crypto.verifier import CpuVerifier
+    from at2_node_tpu_torch.native import ingest
+
+    if not native:
+        monkeypatch.setenv("AT2_NO_NATIVE_INGEST", "1")
+    items = _cpu_items(n)
+    ver, ref = make_verifier("cpu", max_workers=3), RefCpuVerifier(mode="per_sig")
+    assert isinstance(ver, CpuVerifier)
+    await ver.warmup()
+    assert ingest.ingest_ready() == native
+    got = await ver.verify_many(items)
+    assert got == await ref.verify_many(items)
+    assert got[0] is True and (n < 3 or not all(got))
+    assert await ver.verify(*items[0]) is True
+    assert await ver.verify_many([]) == []
+    assert ver.stats() == {"signatures": n + 1, "mode": 0, "mode_name": "per_sig"}
+    await ver.close()
+    await ref.close()

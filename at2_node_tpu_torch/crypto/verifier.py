@@ -2,25 +2,27 @@
 
 Counterpart of ``at2_node_tpu/crypto/verifier.py``. Every signature a node
 checks goes through an async :class:`Verifier`. :class:`CpuVerifier` checks
-each signature on the CPU (OpenSSL, on a thread pool or in one native bulk
-call), as the reference's ``CpuVerifier`` does on its per-signature route.
-:class:`CudaBatchVerifier` is the port of ``TpuBatchVerifier``'s
-per-signature path: it accumulates
-requests, pads a flush to a bucket of its ladder, and runs each batch
-through a three-stage pipeline (host prep and upload, kernel launch,
-completion) on three executor threads, so consecutive batches overlap. A
-flush goes out when the queue reaches ``batch_size`` or when the oldest
-request has waited ``max_delay``, whichever comes first; a backlog deeper
-than ``batch_size`` coalesces into the largest bucket it can fill.
+signatures on the CPU, as the reference's ``CpuVerifier`` does: per
+signature (OpenSSL, on a thread pool or in one native bulk call), or, in
+``mode="auto"`` (the default) for a clean flush of ``rlc_min_batch`` (128)
+or more, with one random-linear-combination (RLC) check through the host
+engine :class:`RlcEngine` (``native/at2_rlc.cpp``, g++), which bisects a
+failing batch down to exact per-signature leaves. :class:`VerifyRouter`
+makes that choice per flush from the batch size and a decaying
+per-source failure rate. Verdicts are always the per-signature ones.
 
-Random-linear-combination (RLC) verification is not ported yet (ROADMAP.md,
-queue 1, item 8). ``CudaBatchVerifier`` takes ``mode="per_sig"``, and
-``auto`` without ``rlc_min_batch`` (which on the reference's device path
-never routes a flush to RLC either). ``CpuVerifier`` takes ``per_sig``
-only, since the reference's CPU ``auto`` routes to RLC from 128 signatures;
-its default mode is therefore ``per_sig`` where the reference's is
-``auto``, as is ``VerifierConfig.mode``'s (``node/config.py:78``), which the
-node slice settles. Anything that would route to RLC raises
+:class:`CudaBatchVerifier` is the port of ``TpuBatchVerifier``'s
+per-signature path: it accumulates requests, pads a flush to a bucket of
+its ladder, and runs each batch through a three-stage pipeline (host prep
+and upload, kernel launch, completion) on three executor threads, so
+consecutive batches overlap. A flush goes out when the queue reaches
+``batch_size`` or when the oldest request has waited ``max_delay``,
+whichever comes first; a backlog deeper than ``batch_size`` coalesces into
+the largest bucket it can fill. Its RLC route (the device graphs of the
+JAX package's ``ops/aggregate.py``) is not ported yet (ROADMAP.md, queue 1,
+item 8): it takes ``mode="per_sig"``, and ``auto`` without
+``rlc_min_batch``, which on the reference's device path never routes a
+flush to RLC either; ``rlc``, or ``auto`` with ``rlc_min_batch``, raises
 ``NotImplementedError``.
 """
 
@@ -29,9 +31,10 @@ from __future__ import annotations
 import asyncio
 import contextlib
 import os
+import threading
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
-from typing import List, Protocol, Sequence, Tuple
+from typing import Callable, List, Optional, Protocol, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -43,9 +46,10 @@ from .keys import verify_one
 
 _MODE_CODES = {"per_sig": 0, "rlc": 1, "auto": 2}
 
-_RLC_NOT_PORTED = (
-    "RLC verification is not ported yet (ROADMAP.md, queue 1, item 8: "
-    "ops/aggregate.py -> certificate and RLC verify); use mode='per_sig'"
+_DEVICE_RLC_NOT_PORTED = (
+    "the CUDA verifier's RLC route is not ported yet (ROADMAP.md, queue 1, "
+    "item 8: ops/aggregate.py -> device RLC verify); use mode='per_sig', or "
+    "'auto' without rlc_min_batch"
 )
 
 
@@ -73,33 +77,44 @@ class Verifier(Protocol):
 class CpuVerifier:
     """Per-signature CPU verification on a thread pool (the reference's
     execution model: `num_cpus` broadcast workers each verifying inline,
-    at2-node/src/bin/server/rpc.rs:125). Verdicts are OpenSSL's (or the
-    RFC 8032 fallback's), as ``verify_one`` gives them. Per-sig only:
-    ``mode`` other than ``per_sig`` raises ``NotImplementedError``."""
+    at2-node/src/bin/server/rpc.rs:125)."""
 
-    def __init__(self, max_workers: int | None = None, mode: str = "per_sig") -> None:
-        if mode not in _MODE_CODES:
-            raise ValueError(f"unknown verifier mode: {mode!r}")
-        if mode != "per_sig":
-            raise NotImplementedError(_RLC_NOT_PORTED)
-        self.mode = mode
+    def __init__(
+        self,
+        max_workers: int | None = None,
+        mode: str = "auto",
+        rlc_min_batch: int = 128,
+    ) -> None:
         self._pool = ThreadPoolExecutor(max_workers=max_workers)
         self._max_workers = self._pool._max_workers
         self.signatures_verified = 0
+        self.router = VerifyRouter(mode, min_batch=rlc_min_batch)
+        self.engine = RlcEngine()
+
+    @property
+    def mode(self) -> str:
+        return self.router.mode
 
     def stats(self) -> dict:
         return {
             "signatures": self.signatures_verified,
-            "mode": _MODE_CODES[self.mode],
-            "mode_name": self.mode,
+            "mode": _MODE_CODES[self.router.mode],
+            "mode_name": self.router.mode,
+            **self.router.stats(),
+            **self.engine.stats(),
         }
 
     async def warmup(self) -> None:
-        """Build and load the native ingest library off the event loop
-        (the bulk-verify path uses it)."""
+        """Build/load the native ingest AND rlc libraries off the event
+        loop (the bulk-verify and RLC paths use them; Broadcast.start
+        covers the parse path for every verifier configuration)."""
         from ..native.ingest import ingest_available
+        from ..native.rlc import rlc_available
 
-        await asyncio.get_running_loop().run_in_executor(self._pool, ingest_available)
+        loop = asyncio.get_running_loop()
+        await loop.run_in_executor(self._pool, ingest_available)
+        if self.router.mode != "per_sig":
+            await loop.run_in_executor(self._pool, rlc_available)
 
     async def verify(self, public_key: bytes, message: bytes, signature: bytes) -> bool:
         loop = asyncio.get_running_loop()
@@ -111,17 +126,35 @@ class CpuVerifier:
     async def verify_many(
         self, items: Sequence[Tuple[bytes, bytes, bytes]]
     ) -> List[bool]:
-        """Bulk path: one executor round-trip and, when the native ingest
-        library is built, one C call for the whole chunk: OpenSSL runs on
-        native threads with the GIL released. Else per-slice Python
-        verification on the pool."""
-        from ..native.ingest import ingest_ready_or_kick, verify_bulk_native
-
+        """Bulk path: ONE executor round-trip and (when the native ingest
+        library built) ONE C call for the whole chunk — OpenSSL grinds on
+        native threads with the GIL released, fanned out across real
+        cores C++-side instead of GIL-juggled Python slices. Falls back
+        to per-slice Python verification otherwise."""
         loop = asyncio.get_running_loop()
         self.signatures_verified += len(items)
         n = len(items)
         if n == 0:
             return []
+
+        from ..native.ingest import ingest_ready_or_kick, verify_bulk_native
+
+        # Amortized route: ONE RLC check for the whole chunk
+        # when the router says the batch is big and clean enough. The
+        # engine resolves exact per-entry verdicts (bisection on batch
+        # failure), so callers can't tell the routes apart except by
+        # speed; verdict outcomes feed the router's per-source EWMA on
+        # both routes.
+        if self.router.mode != "per_sig":
+            sources = [it[0] for it in items]
+            route = self.router.choose(sources, rlc_ready=self.engine.ready())
+            if route == "rlc":
+                results = await loop.run_in_executor(
+                    self._pool, self.engine.verify_batch, items
+                )
+                self.router.observe(list(zip(sources, results)))
+                return results
+
         # The one-C-call path has a fixed staging cost (ragged packing,
         # the ctypes crossing) that pays off only on real batches, so
         # small chunks stay on the slice path. ingest_ready_or_kick never
@@ -133,7 +166,9 @@ class CpuVerifier:
             result = await loop.run_in_executor(
                 self._pool, verify_bulk_native, items, n_threads
             )
-            return result.tolist()
+            out = result.tolist()
+            self._observe(items, out)
+            return out
 
         slices = min(n, self._max_workers)
         step = (n + slices - 1) // slices
@@ -145,10 +180,20 @@ class CpuVerifier:
             loop.run_in_executor(self._pool, run, items[i : i + step])
             for i in range(0, n, step)
         ]
-        out: List[bool] = []
+        out = []
         for results in await asyncio.gather(*futs):
             out.extend(results)
+        self._observe(items, out)
         return out
+
+    def _observe(self, items, results: Sequence[bool]) -> None:
+        """Per-sig verdicts still train the router's failure EWMA, so a
+        salting source stays routed per-sig while misbehaving and decays
+        back to RLC eligibility once it stops."""
+        if self.router.mode == "auto":
+            self.router.observe(
+                [(it[0], bool(ok)) for it, ok in zip(items, results)]
+            )
 
     async def close(self) -> None:
         self._pool.shutdown(wait=False, cancel_futures=True)
@@ -187,36 +232,327 @@ class _Pending:
     enqueued_at: float
 
 
-class _Routes:
-    """Per-flush route record. Every flush of this verifier is per-sig;
-    the counters keep the reference's ``stats()`` keys (its router's) so
-    an operator view reads both verifiers alike. As in the reference, a
-    flush is recorded only in ``auto`` mode."""
+class VerifyRouter:
+    """Per-flush routing between per-signature and RLC verification.
 
-    def __init__(self) -> None:
+    Policy: route a flush to RLC only when (a) the engine is
+    ready, (b) the batch is big enough that one RLC check beats B
+    per-sig checks (the fixed torsion-round cost dominates small
+    batches), and
+    (c) the batch's *expected bad count* — the sum of a decaying
+    per-source failure EWMA over its entries — stays under budget. A
+    salting source drives its own EWMA toward 1 within one bad flush, so
+    batches carrying its traffic fall back to per-sig cost immediately
+    and recover (EWMA decays on clean observations) when it stops.
+    """
+
+    def __init__(
+        self,
+        mode: str = "auto",
+        *,
+        min_batch: int = 128,
+        decay: float = 0.2,
+        expected_bad_budget: float = 0.5,
+        max_sources: int = 8192,
+    ) -> None:
+        if mode not in _MODE_CODES:
+            raise ValueError(f"unknown verifier mode: {mode!r}")
+        self.mode = mode
+        self.min_batch = min_batch
+        self.decay = decay
+        self.expected_bad_budget = expected_bad_budget
+        self.max_sources = max_sources
+        self._fail_ewma: dict[bytes, float] = {}
+        self._lock = threading.Lock()
+        self.route_rlc = 0
         self.route_per_sig = 0
+        self.last_route = "per_sig"
         self.last_batch = 0
+        self.last_expected_bad = 0.0
+        # routing DISTRIBUTIONS: lanes per flush by chosen route — the
+        # crossover evidence /metrics needs (a healthy auto node shows
+        # rlc lanes clustered at full buckets, per-sig at trickles)
         self.h_rlc_lanes = Histogram("route_rlc_lanes", "lanes per RLC-routed flush")
         self.h_per_sig_lanes = Histogram(
             "route_per_sig_lanes", "lanes per per-sig-routed flush"
         )
 
-    def per_sig(self, n: int) -> None:
-        self.route_per_sig += 1
-        self.last_batch = n
-        self.h_per_sig_lanes.observe(float(n))
+    def expected_bad(self, sources: Sequence[bytes]) -> float:
+        ewma = self._fail_ewma
+        return sum(ewma.get(s, 0.0) for s in sources)
+
+    def choose(
+        self, sources: Sequence[bytes], *, rlc_ready: bool = True
+    ) -> str:
+        """Route one flush: ``"rlc"`` or ``"per_sig"``."""
+        n = len(sources)
+        if self.mode == "per_sig" or not rlc_ready:
+            route = "per_sig"
+            exp_bad = 0.0
+        elif self.mode == "rlc":
+            route = "rlc"
+            exp_bad = 0.0
+        else:
+            exp_bad = self.expected_bad(sources)
+            route = (
+                "rlc"
+                if n >= self.min_batch and exp_bad <= self.expected_bad_budget
+                else "per_sig"
+            )
+        with self._lock:
+            if route == "rlc":
+                self.route_rlc += 1
+                self.h_rlc_lanes.observe(float(n))
+            else:
+                self.route_per_sig += 1
+                self.h_per_sig_lanes.observe(float(n))
+            self.last_route = route
+            self.last_batch = n
+            self.last_expected_bad = exp_bad
+        return route
+
+    def observe(self, outcomes: Sequence[Tuple[bytes, bool]]) -> None:
+        """Feed per-entry verdicts back into the per-source failure EWMA
+        (both routes observe, so a salter stays hot even while its
+        traffic runs per-sig, and decays back once it behaves)."""
+        d = self.decay
+        with self._lock:
+            ewma = self._fail_ewma
+            for src, ok in outcomes:
+                p = ewma.get(src, 0.0)
+                p += d * ((0.0 if ok else 1.0) - p)
+                if p < 1e-4:
+                    ewma.pop(src, None)
+                else:
+                    ewma[src] = p
+            while len(ewma) > self.max_sources:
+                # bounded state: drop the coldest source
+                coldest = min(ewma, key=ewma.get)
+                del ewma[coldest]
+
+    def hot_sources(self, threshold: float = 0.1) -> int:
+        with self._lock:
+            return sum(1 for p in self._fail_ewma.values() if p > threshold)
 
     def stats(self) -> dict:
-        return {
-            "route_rlc": 0,
-            "route_per_sig": self.route_per_sig,
-            "route_last": "per_sig",
-            "route_last_batch": self.last_batch,
-            "route_last_expected_bad": 0.0,
-            "router_sources": 0,
-            **self.h_rlc_lanes.flat("route_rlc_lanes"),
-            **self.h_per_sig_lanes.flat("route_per_sig_lanes"),
-        }
+        with self._lock:
+            return {
+                "route_rlc": self.route_rlc,
+                "route_per_sig": self.route_per_sig,
+                "route_last": self.last_route,
+                "route_last_batch": self.last_batch,
+                "route_last_expected_bad": round(self.last_expected_bad, 4),
+                "router_sources": len(self._fail_ewma),
+                **self.h_rlc_lanes.flat("route_rlc_lanes"),
+                **self.h_per_sig_lanes.flat("route_per_sig_lanes"),
+            }
+
+
+class RlcEngine:
+    """CPU RLC batch verification with bisection fallback (sync; callers
+    run it on executor threads — the native calls release the GIL).
+
+    One :meth:`verify_batch` call resolves exact per-entry verdicts:
+
+    1. prepare (shared host prep: s-range checks, h = SHA-512 mod L);
+    2. certify public keys through the per-key cache — exact [L]A once
+       per distinct key; lanes whose A is tainted/undecodable reroute to
+       the exact per-sig path (their cofactorless verdict can differ
+       from any batched check, so they never enter the RLC equation);
+    3. ONE native RLC check (equation + randomized R-torsion rounds)
+       over the remaining lanes;
+    4. on failure, bisect: recursively split and re-check halves with
+       fresh randomness until sub-batches pass whole or shrink to
+       ``leaf_size``, then resolve leaves exactly per-signature — a
+       poison entry costs ~2·log2(B/leaf) extra checks, everyone else
+       still verifies amortized.
+
+    ``check_fn``/``leaf_fn`` are injectable for tests (check counting
+    without curve work).
+    """
+
+    def __init__(
+        self,
+        *,
+        leaf_size: int = 16,
+        k_rounds: int | None = None,
+        cert_cache_max: int = 65536,
+        check_fn: Optional[Callable] = None,
+        leaf_fn: Optional[Callable] = None,
+    ) -> None:
+        from ..native import rlc as rlc_native
+
+        self._rlc = rlc_native
+        self.leaf_size = leaf_size
+        self.k_rounds = (
+            k_rounds if k_rounds is not None else rlc_native.TORSION_ROUNDS
+        )
+        self.cert_cache_max = cert_cache_max
+        self._check_fn = check_fn
+        self._leaf_fn = leaf_fn
+        self._cert: dict[bytes, int] = {}
+        self._lock = threading.Lock()
+        # counters (locked: CpuVerifier's pool may run two batches at once)
+        self.rlc_batches = 0
+        self.rlc_fallbacks = 0
+        self.rlc_checks = 0
+        self.rlc_sigs = 0
+        self.rlc_anomalies = 0
+        self.bisection_depth = 0
+        self.leaf_sigs = 0
+        self.cert_misses = 0
+        self.exact_reroutes = 0
+
+    def stats(self) -> dict:
+        with self._lock:
+            return {
+                "rlc_batches": self.rlc_batches,
+                "rlc_fallbacks": self.rlc_fallbacks,
+                "rlc_checks": self.rlc_checks,
+                "rlc_sigs": self.rlc_sigs,
+                "rlc_anomalies": self.rlc_anomalies,
+                "bisection_depth": self.bisection_depth,
+                "leaf_sigs": self.leaf_sigs,
+                "certified_keys": len(self._cert),
+                "cert_misses": self.cert_misses,
+                "exact_reroutes": self.exact_reroutes,
+            }
+
+    def ready(self) -> bool:
+        return self._rlc.rlc_ready_or_kick()
+
+    # -- certification cache ---------------------------------------------
+
+    def _certify(self, pks: Sequence[bytes]) -> np.ndarray:
+        """Per-lane verdicts from the cache: True when the key's A is
+        certified torsion-free (safe for the RLC equation)."""
+        cache = self._cert
+        misses: list[bytes] = []
+        seen: set = set()
+        for pk in pks:
+            if pk not in cache and pk not in seen:
+                seen.add(pk)
+                misses.append(pk)
+        if misses:
+            verdicts = self._rlc.certify_keys(misses)
+            with self._lock:
+                self.cert_misses += len(misses)
+                for pk, v in zip(misses, verdicts):
+                    cache[pk] = int(v)
+                while len(cache) > self.cert_cache_max:
+                    cache.pop(next(iter(cache)))
+        return np.fromiter(
+            (cache.get(pk, 0) == 2 for pk in pks), dtype=bool, count=len(pks)
+        )
+
+    # -- checking --------------------------------------------------------
+
+    def _check(self, prep, idxs: np.ndarray):
+        """One RLC check over the lanes in ``idxs``. Returns
+        (batch_ok, decomp_ok-over-idxs)."""
+        a, r, s_le, h_le, _valid = prep
+        with self._lock:
+            self.rlc_checks += 1
+        if self._check_fn is not None:
+            return self._check_fn(prep, idxs)
+        sub_valid = np.ones(len(idxs), dtype=bool)
+        return self._rlc.rlc_check(
+            r[idxs], a[idxs], s_le[idxs], h_le[idxs], sub_valid,
+            k_rounds=self.k_rounds,
+        )
+
+    def _leaf(self, items, idxs: np.ndarray, verdicts: np.ndarray) -> None:
+        """Exact per-signature resolution of a bisection leaf."""
+        with self._lock:
+            self.leaf_sigs += len(idxs)
+        if self._leaf_fn is not None:
+            res = self._leaf_fn(items, idxs)
+        else:
+            from ..native.ingest import ingest_available, verify_bulk_native
+
+            chunk = [items[int(i)] for i in idxs]
+            if ingest_available():
+                res = verify_bulk_native(chunk, 1)
+            else:
+                res = [verify_one(pk, m, s) for pk, m, s in chunk]
+        for i, ok in zip(idxs, res):
+            verdicts[int(i)] = bool(ok)
+
+    def _bisect(
+        self, prep, items, idxs: np.ndarray, verdicts: np.ndarray, depth: int
+    ) -> None:
+        """Resolve ``idxs`` (known to have failed a check) exactly."""
+        with self._lock:
+            if depth > self.bisection_depth:
+                self.bisection_depth = depth
+        if len(idxs) <= self.leaf_size:
+            self._leaf(items, idxs, verdicts)
+            return
+        mid = len(idxs) // 2
+        halves = (idxs[:mid], idxs[mid:])
+        results = []
+        for half in halves:
+            ok, decomp = self._check(prep, half)
+            results.append((half, ok, decomp))
+        if all(ok for _, ok, _ in results):
+            # the parent failed but both halves pass: a torsion round
+            # fired on the parent and missed on both halves (probability
+            # 2^-k each) — resolve everything exactly rather than trust
+            # either verdict
+            with self._lock:
+                self.rlc_anomalies += 1
+            self._leaf(items, idxs, verdicts)
+            return
+        for half, ok, decomp in results:
+            if ok:
+                verdicts[half[decomp]] = True  # non-decomp lanes stay False
+            else:
+                sub = half[decomp]
+                if len(sub):
+                    self._bisect(prep, items, sub, verdicts, depth + 1)
+
+    def verify_batch(
+        self, items: Sequence[Tuple[bytes, bytes, bytes]]
+    ) -> List[bool]:
+        """Exact per-entry verdicts for one flush, RLC-amortized."""
+        from ..ops import ed25519 as ed_ops
+
+        n = len(items)
+        pks = [it[0] for it in items]
+        msgs = [it[1] for it in items]
+        sigs = [it[2] for it in items]
+        prep = ed_ops.prepare_batch(pks, msgs, sigs)
+        a, r, s_le, h_le, valid = prep
+        verdicts = np.zeros(n, dtype=bool)
+
+        if self._check_fn is None:
+            cert_ok = self._certify(pks)
+        else:
+            cert_ok = np.ones(n, dtype=bool)
+        rlc_lanes = np.flatnonzero(valid[:n] & cert_ok)
+        exact_lanes = np.flatnonzero(valid[:n] & ~cert_ok)
+        with self._lock:
+            self.rlc_batches += 1
+            self.rlc_sigs += len(rlc_lanes)
+            self.exact_reroutes += len(exact_lanes)
+
+        if len(rlc_lanes) <= self.leaf_size:
+            # not enough amortizable lanes to beat per-sig: resolve exact
+            if len(rlc_lanes):
+                self._leaf(items, rlc_lanes, verdicts)
+        else:
+            ok, decomp = self._check(prep, rlc_lanes)
+            if ok:
+                verdicts[rlc_lanes[decomp]] = True
+            else:
+                with self._lock:
+                    self.rlc_fallbacks += 1
+                sub = rlc_lanes[decomp]
+                if len(sub):
+                    self._bisect(prep, items, sub, verdicts, 1)
+        if len(exact_lanes):
+            self._leaf(items, exact_lanes, verdicts)
+        return verdicts.tolist()
 
 
 class CudaBatchVerifier:
@@ -256,9 +592,11 @@ class CudaBatchVerifier:
         if mode not in _MODE_CODES:
             raise ValueError(f"unknown verifier mode: {mode!r}")
         if mode == "rlc" or (mode == "auto" and rlc_min_batch is not None):
-            raise NotImplementedError(_RLC_NOT_PORTED)
+            raise NotImplementedError(_DEVICE_RLC_NOT_PORTED)
         self.device = cuda_verify.resolve_device(device)
-        self.mode = mode
+        # the reference's device default: auto never routes a flush to RLC
+        # unless the operator opts in with rlc_min_batch, which raises above
+        self.router = VerifyRouter(mode, min_batch=1 << 30)
         self.batch_size = batch_size
         self.max_delay = max_delay
         self._clock = SYSTEM_CLOCK if clock is None else clock
@@ -288,7 +626,6 @@ class CudaBatchVerifier:
         self._completions: set = set()
         self._closed = False
         self._flusher = asyncio.get_running_loop().create_task(self._flush_loop())
-        self._routes = _Routes()
         self.batches_dispatched = 0
         self.signatures_verified = 0
         self.total_padding = 0
@@ -334,12 +671,12 @@ class CudaBatchVerifier:
             "launch_ms_avg": (1e3 * self.total_launch_s / n_b) if n_b else 0.0,
             "finish_ms_avg": (1e3 * self.total_finish_s / n_b) if n_b else 0.0,
             **self.h_queue_wait.flat("queue_wait"),
-            "mode": _MODE_CODES[self.mode],
-            "mode_name": self.mode,
+            "mode": _MODE_CODES[self.router.mode],
+            "mode_name": self.router.mode,
             "rlc_batches": 0,
             "rlc_fallbacks": 0,
             "rlc_reroutes": 0,
-            **self._routes.stats(),
+            **self.router.stats(),
         }
 
     def stage_histograms(self) -> dict:
@@ -622,8 +959,8 @@ class CudaBatchVerifier:
         # waiting for an in-flight slot is queue time to the caller
         self.h_queue_wait.observe(self._clock.monotonic() - batch[0].enqueued_at)
         await self._inflight.acquire()
-        if self.mode == "auto":
-            self._routes.per_sig(len(batch))
+        if self.router.mode != "per_sig":
+            self.router.choose(pks)  # always "per_sig": the device RLC route is item 8
         # the clock starts after the depth gate: dispatch latency is one
         # batch's prep -> results time, not its queue wait
         t0 = self._clock.monotonic()

@@ -18,10 +18,11 @@ Exports:
   `crypto.keys.verify_one` (same libcrypto under both).
 * :func:`counts_add_native` / :func:`quorum_mask_native` — the batched
   plane's endorsement tallies.
+* :func:`distill_parse_native` — the node's distilled-frame parser
+  (``proto/distill.py`` format), one GIL-released call per frame.
 
-The source also holds the fused owner drain (``at2_plane_drain``) and the
-distilled-frame parser (``at2_distill_parse``); their bindings come with
-their consumers (the plane shards and the service).
+The source also holds the fused owner drain (``at2_plane_drain``); its
+binding comes with its consumer, the plane shards (ROADMAP.md item 7c).
 """
 
 from __future__ import annotations
@@ -122,6 +123,11 @@ def _load() -> Optional[ctypes.CDLL]:
             _I32P, ctypes.c_int64, ctypes.c_int32, U8P, ctypes.c_int64,
         ]
         lib.at2_quorum_mask.restype = ctypes.c_int64
+        lib.at2_distill_parse.argtypes = [
+            U8P, ctypes.c_int64, U8P, ctypes.c_int64,
+            U8P, U64P, U8P, ctypes.c_int64,
+        ]
+        lib.at2_distill_parse.restype = ctypes.c_int64
         _lib = lib
         return _lib
 
@@ -277,6 +283,39 @@ def _build_rows(rows, msg_frame, flat, n: int, stride: int):
         else:  # pragma: no cover - the C side never emits other kinds
             continue
         yield i, frame_idx[i], msg
+
+
+def distill_parse_native(
+    frame: bytes, dir_keys: np.ndarray, dir_count: int
+) -> Optional[Tuple[bytes, np.ndarray, np.ndarray]]:
+    """Parse + expand one distilled frame (proto/distill.py format) in a
+    single GIL-released native call, resolving client-ids against the
+    directory's ``(cap, 32)`` uint8 key table.
+
+    Returns ``(bodies, sender_ids, ok)`` — ``bodies`` is ``n * 140``
+    canonical entry bytes (TxBatch ``entries_raw`` layout), ``ok[i]``
+    False marks a directory miss — or ``None`` when the frame is
+    malformed (same acceptance set as ``distill.decode``; differential-
+    tested against the Python decoder)."""
+    lib = _load()
+    assert lib is not None, "call ingest_available() first"
+    from ..proto.distill import DISTILL_MAX_ENTRIES, ENTRY_WIRE
+
+    buf = np.frombuffer(frame, dtype=np.uint8)
+    cap = DISTILL_MAX_ENTRIES
+    bodies = np.zeros(cap * ENTRY_WIRE, dtype=np.uint8)
+    ids = np.zeros(cap, dtype=np.uint64)
+    ok = np.zeros(cap, dtype=np.uint8)
+    assert dir_keys.dtype == np.uint8 and dir_keys.flags["C_CONTIGUOUS"]
+    n = int(
+        lib.at2_distill_parse(
+            ptr8(buf), len(frame), ptr8(dir_keys), int(dir_count),
+            ptr8(bodies), ids.ctypes.data_as(U64P), ptr8(ok), cap,
+        )
+    )
+    if n < 0:
+        return None
+    return bodies[: n * ENTRY_WIRE].tobytes(), ids[:n], ok[:n].astype(bool)
 
 
 def verify_bulk_native(

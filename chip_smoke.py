@@ -44,7 +44,27 @@ is printed):
    256-lane buckets, the kernel's launch count (set to 0 just before each
    run) equals the flushes, and ``invalid_sig`` counts the tampered twins.
    The four nodes share one process and one GIL: the rate is a floor.
-6. One JSON line describing the kernel (its times and bound at every
+6. The node service, twice: four ``server run`` processes, configured
+   by ``server config new`` and ``config get-node`` with ``[verifier]
+   kind = "cuda"`` at the node default table, each in its own process on
+   the card (the kernel built in phase 2 is loaded, not rebuilt); 16
+   seeded clients, client c talking to node c mod 4 over gRPC through
+   the port's ``Client``. Run A: ``send_asset_many`` (SendAssetBatch),
+   1,024 transfers per client; run B: unary ``send_asset``, 64 per
+   client, with 16 tampered twins sent first. A run's window ends when
+   every node's committed count (one /healthz GET per node every 25 ms)
+   has grown by the run's transfers; every client's ``GetLastSequence``
+   on every node is checked once after it. Checks: every valid
+   transfer commits on every node (``GetLastSequence`` and
+   ``GetBalance`` of every account equal the python-int replay), every
+   tampered twin is refused with INVALID_ARGUMENT, each node's
+   ``/metrics`` shows ``audit_divergence`` 0 and ``rejected_at_ingress``
+   equal to the twins refused there, each verifier dispatched batches
+   and launched the kernel once per batch (the process's launch count in
+   the ``/statusz`` build block, read before and after each run; a
+   ``server run`` process holds one verifier), each build block
+   names the card, and every server exits 0 on SIGTERM.
+7. One JSON line describing the kernel (its times and bound at every
    shape, every main-path run, the ptxas figures and the threads per
    signature), then the result line ``{"ok": true, "device": {...}}``.
 
@@ -93,6 +113,12 @@ NET_CLIENTS = 16
 NET_PER_CLIENT_BATCHED = 1024
 NET_PER_CLIENT_PER_TX = 64
 NET_DEADLINE_S = 240.0
+# phase 6: the same net as `server run` processes; run B's tampered twins
+# stay far under the admission fail bucket (64 per 10 s per source)
+NODE_TAMPERED = 16
+# a run's window ends at the /healthz poll that sees the last node's
+# committed count reach its target: one small GET per node per period
+NODE_POLL_S = 0.025
 
 RFC8032_TEST1 = (
     "9d61b19deffd5a60ba844af492ec2cc44449c5697b326919703bac031cae7f60",
@@ -832,6 +858,391 @@ async def net_path(seed: int, by_lanes: dict) -> dict:
     }
 
 
+# -- phase 6 ---------------------------------------------------------------
+
+
+def server_argv(*args: str) -> list:
+    return [sys.executable, "-m", "at2_node_tpu_torch.cli.server", *args]
+
+
+def checkout_env() -> dict:
+    """The environment of a process started from this checkout: the
+    checkout first on PYTHONPATH."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = root + (os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    return env
+
+
+class ServerNet:
+    """``n`` ``server run`` processes on 127.0.0.1, configured the way an
+    operator does it: one ``server config new`` per node (``--verifier
+    cpu`` for the host kind), every other node's ``config get-node``
+    fragment appended."""
+
+    def __init__(self, kind: str, workdir: str, n: int = NET_NODES) -> None:
+        self.kind = kind
+        self.workdir = workdir
+        self.n = n
+        self.procs: list = []
+        self.logs: list = []
+        self.rpc_ports: list = []
+
+    def _cli(self, argvs: list, inputs: list) -> list:
+        """Run CLI commands side by side; their standard outputs."""
+        procs = [subprocess.Popen(a, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True, env=checkout_env())
+                 for a in argvs]
+        outs = []
+        for argv, proc, text in zip(argvs, procs, inputs):
+            out, err = proc.communicate(text, timeout=120)
+            check(proc.returncode == 0, f"{' '.join(argv[2:])} failed: {err.strip()[-2000:]}")
+            outs.append(out)
+        return outs
+
+    def start(self, deadline_s: float) -> None:
+        ports = free_ports(2 * self.n)
+        node_ports, self.rpc_ports = ports[0::2], ports[1::2]
+        # the card's kind is config new's default; the host's is asked for
+        ask = [] if self.kind == "cuda" else ["--verifier", self.kind]
+        configs = self._cli(
+            [server_argv("config", "new", *ask, f"127.0.0.1:{a}", f"127.0.0.1:{b}")
+             for a, b in zip(node_ports, self.rpc_ports)],
+            [""] * self.n,
+        )
+        table = f'[verifier]\nkind = "{self.kind}"\nbatch_size = 256\nmax_delay = 0.002\nmode = "auto"\n'
+        check(all(c.count(table) == 1 for c in configs),
+              f"config new wrote no node default [verifier] table of kind {self.kind!r}")
+        fragments = self._cli([server_argv("config", "get-node")] * self.n, configs)
+        for i in range(self.n):
+            toml = configs[i] + "\n" + "\n".join(f for j, f in enumerate(fragments) if j != i)
+            path = os.path.join(self.workdir, f"node{i}.toml")
+            with open(path, "w") as f:
+                f.write(toml)
+            log_path = os.path.join(self.workdir, f"node{i}.log")
+            self.logs.append(log_path)
+            with open(path) as stdin, open(log_path, "w") as out:
+                self.procs.append(subprocess.Popen(server_argv("run"), stdin=stdin, stdout=out,
+                                                   stderr=subprocess.STDOUT, env=checkout_env()))
+        # a node binds its RPC port after its verifier's warmup
+        t_end = time.perf_counter() + deadline_s
+        for i, port in enumerate(self.rpc_ports):
+            while not self._accepts(port):
+                check(self.procs[i].poll() is None,
+                      f"node {i} exited with {self.procs[i].returncode}: {self.log_tail(i)}")
+                check(time.perf_counter() < t_end, f"node {i}'s RPC port never came up: {self.log_tail(i)}")
+                time.sleep(0.1)
+        while any(self.stats(i)["mesh_channels"] < 2 * (self.n - 1) for i in range(self.n)):
+            check(time.perf_counter() < t_end, f"the {self.n}-node mesh did not connect in {deadline_s} s")
+            time.sleep(0.05)
+
+    @staticmethod
+    def _accepts(port: int) -> bool:
+        import socket
+
+        try:
+            with socket.create_connection(("127.0.0.1", port), timeout=1):
+                return True
+        except OSError:
+            return False
+
+    def log_tail(self, i: int, n: int = 3000) -> str:
+        with open(self.logs[i]) as f:
+            return f.read()[-n:]
+
+    def get(self, i: int, path: str) -> str:
+        import urllib.request
+
+        with urllib.request.urlopen(f"http://127.0.0.1:{self.rpc_ports[i]}{path}", timeout=30) as r:
+            return r.read().decode()
+
+    def statusz(self, i: int) -> dict:
+        return json.loads(self.get(i, "/statusz"))
+
+    def stats(self, i: int) -> dict:
+        return self.statusz(i)["stats"]
+
+    def committed(self, i: int) -> int:
+        """Transfers node ``i`` has committed, from /healthz: a small body
+        (a 503 verdict carries it too)."""
+        import urllib.error
+
+        try:
+            body = self.get(i, "/healthz")
+        except urllib.error.HTTPError as exc:
+            body = exc.read().decode()
+        return json.loads(body)["committed"]
+
+    def metrics(self, i: int) -> dict:
+        """/metrics as {name: value} (the exposition's sample lines)."""
+        out = {}
+        for line in self.get(i, "/metrics").splitlines():
+            if line and not line.startswith("#"):
+                name, _, value = line.rpartition(" ")
+                out[name] = float(value)
+        return out
+
+    def stop(self) -> list:
+        """SIGTERM every server; their exit codes."""
+        import signal
+
+        for p in self.procs:
+            if p.poll() is None:
+                p.send_signal(signal.SIGTERM)
+        rcs = []
+        for p in self.procs:
+            try:
+                rcs.append(p.wait(timeout=60))
+            except subprocess.TimeoutExpired:
+                p.kill()
+                rcs.append(p.wait())
+        return rcs
+
+
+def node_traffic(rng, n_clients: int, per_batched: int, per_unary: int, n_tampered: int):
+    """Seeded wallets and their transfers, sequences 1..per_batched (run A)
+    then per_batched+1..+per_unary (run B), each to another client with an
+    amount of 1-50 (no debit can fail). ``n_tampered`` run-B slots, spread
+    over the clients, get a tampered twin (another amount, one signature
+    bit flipped) sent just before the valid transfer."""
+    from at2_node_tpu_torch.crypto.keys import SignKeyPair
+    from at2_node_tpu_torch.types import transfer_signing_bytes
+
+    clients = [SignKeyPair(rng.bytes(32)) for _ in range(n_clients)]
+
+    def transfer(c: int, seq: int) -> tuple:
+        recipient = clients[(c + 1 + int(rng.integers(0, n_clients - 1))) % n_clients].public
+        return (seq, recipient, int(rng.integers(1, 51)))
+
+    run_a = [[transfer(c, s) for s in range(1, per_batched + 1)] for c in range(n_clients)]
+    run_b = [[transfer(c, s) for s in range(per_batched + 1, per_batched + per_unary + 1)]
+             for c in range(n_clients)]
+    twins: dict = {}
+    for k in range(n_tampered):
+        c = k % n_clients
+        seq, recipient, amount = run_b[c][int(rng.integers(0, per_unary))]
+        sig = bytearray(clients[c].sign(
+            transfer_signing_bytes(clients[c].public, seq, recipient, amount + 1)))
+        sig[int(rng.integers(0, 64))] ^= 1 << int(rng.integers(0, 8))
+        twins[(c, seq)] = (recipient, amount + 1, bytes(sig))
+    return clients, run_a, run_b, twins
+
+
+def signing_pass(clients: list, per_client: list) -> float:
+    """Seconds this process takes to sign every transfer once: the signing
+    the Client does inside its calls, measured apart."""
+    from at2_node_tpu_torch.types import transfer_signing_bytes
+
+    t0 = time.perf_counter()
+    for kp, transfers in zip(clients, per_client):
+        for seq, recipient, amount in transfers:
+            kp.sign(transfer_signing_bytes(kp.public, seq, recipient, amount))
+    return time.perf_counter() - t0
+
+
+def wait_committed(net: ServerNet, want: list, deadline_s: float) -> float:
+    """Poll each node's committed count (one /healthz GET per node every
+    NODE_POLL_S) until node i has committed ``want[i]``; the perf_counter
+    time of the poll that saw the last node get there. The window's end
+    is known to within one poll period, and the probe costs each node
+    1/NODE_POLL_S small requests a second."""
+    pending = set(range(net.n))
+    t_end = time.perf_counter() + deadline_s
+    last = 0.0
+    while pending:
+        check(time.perf_counter() < t_end,
+              f"nodes {sorted(pending)} short of {[want[i] for i in sorted(pending)]} commits "
+              f"after {deadline_s} s")
+        for i in sorted(pending):
+            if net.committed(i) >= want[i]:
+                pending.discard(i)
+                last = time.perf_counter()
+        if pending:
+            time.sleep(NODE_POLL_S)
+    return last
+
+
+async def check_sequences(net: ServerNet, clients: list, want: int) -> None:
+    """Once, after a run's window: every client's GetLastSequence on every
+    node is ``want``."""
+    from at2_node_tpu_torch.client import Client
+
+    for i, port in enumerate(net.rpc_ports):
+        async with Client(f"http://127.0.0.1:{port}") as conn:
+            seqs = await asyncio.gather(*(conn.get_last_sequence(kp.public) for kp in clients))
+        short = [c for c, s in enumerate(seqs) if s != want]
+        check(not short, f"node {i}: clients {short} are not at sequence {want}")
+
+
+async def node_run(net: ServerNet, label: str, clients: list, transfers: list, batched: bool,
+                   twins: dict, want_seq: int, deadline_s: float) -> dict:
+    """One phase-6 run: client c submits its transfers, in order, to node c
+    mod n through the port's Client (``send_asset_many`` or ``send_asset``),
+    each tampered twin first through a raw stub; returns once every node
+    has committed every valid transfer."""
+    import grpc
+
+    from at2_node_tpu_torch.client import Client
+    from at2_node_tpu_torch.proto import at2_pb2 as pb
+    from at2_node_tpu_torch.proto.rpc import At2Stub
+
+    n = net.n
+    sign_s = signing_pass(clients, transfers)
+    n_sigs = sum(len(t) for t in transfers)
+    refused = Counter()
+
+    async def client(c: int) -> None:
+        url = f"127.0.0.1:{net.rpc_ports[c % n]}"
+        kp = clients[c]
+        async with Client(f"http://{url}") as conn:
+            if batched:
+                await conn.send_asset_many(kp, transfers[c])
+                return
+            channel = grpc.aio.insecure_channel(url)
+            stub = At2Stub(channel)
+            try:
+                for seq, recipient, amount in transfers[c]:
+                    twin = twins.get((c, seq))
+                    if twin is not None:
+                        req = pb.SendAssetRequest(sender=kp.public, sequence=seq, recipient=twin[0],
+                                                  amount=twin[1], signature=twin[2])
+                        try:
+                            await stub.SendAsset(req)
+                        except grpc.aio.AioRpcError as exc:
+                            check(exc.code() == grpc.StatusCode.INVALID_ARGUMENT,
+                                  f"a tampered transfer got {exc.code()}, not INVALID_ARGUMENT")
+                            refused[c % n] += 1
+                        else:
+                            check(False, "a tampered transfer was admitted")
+                    await conn.send_asset(kp, seq, recipient, amount)
+            finally:
+                await channel.close()
+
+    before = [net.statusz(i) for i in range(n)]
+    t0 = time.perf_counter()
+    await asyncio.gather(*(client(c) for c in range(len(clients))))
+    submit_s = time.perf_counter() - t0
+    t_last = wait_committed(net, [b["stats"]["committed"] + n_sigs for b in before], deadline_s)
+    wall = t_last - t0
+    await check_sequences(net, clients, want_seq)
+    return {"label": label, "wall_s": wall, "tx_per_s": n_sigs / wall, "transfers": n_sigs,
+            "clients": len(clients),
+            "sign_s": sign_s, "submit_s": submit_s, "refused": refused, "before": before}
+
+
+async def node_path(seed: int, by_lanes, card, kind: str = "cuda", n_clients: int = NET_CLIENTS,
+                    per_batched: int = NET_PER_CLIENT_BATCHED, per_unary: int = NET_PER_CLIENT_PER_TX,
+                    n_tampered: int = NODE_TAMPERED, deadline_s: float = NET_DEADLINE_S) -> dict:
+    """Phase 6: four ``server run`` processes with ``[verifier] kind``; run A
+    through ``send_asset_many``, run B through unary ``send_asset`` with
+    tampered twins; then the ledgers, refusals, metrics and shutdown are
+    checked. ``by_lanes`` (phase 3's kernel times) and ``card`` (the name
+    the build block must carry) are None off the card."""
+    import tempfile
+
+    from at2_node_tpu_torch.client import Client
+
+    rng = np.random.default_rng(seed + 6)
+    clients, run_a, run_b, twins = node_traffic(rng, n_clients, per_batched, per_unary, n_tampered)
+    with tempfile.TemporaryDirectory(prefix="at2-phase6-") as workdir:
+        net = ServerNet(kind, workdir)
+        t0 = time.perf_counter()
+        try:
+            net.start(deadline_s=180.0)
+            log(f"node net: {net.n} `server run` processes, [verifier] kind = \"{kind}\", "
+                f"up and meshed in {time.perf_counter() - t0:.1f} s")
+            runs = {}
+            refused_total = Counter()
+            for name, label, transfers, batched, want in (
+                ("node_grpc_batched", "node net (SendAssetBatch)", run_a, True, per_batched),
+                ("node_grpc_unary", "node net (unary SendAsset)", run_b, False, per_batched + per_unary),
+            ):
+                run = await node_run(net, label, clients, transfers, batched,
+                                     {} if batched else twins, want, deadline_s)
+                refused_total.update(run["refused"])
+                runs[name] = node_checks(net, run, by_lanes, card, kind, refused_total)
+            check(sum(refused_total.values()) == len(twins),
+                  f"{sum(refused_total.values())} of {len(twins)} tampered transfers refused")
+            # the ledgers: every valid transfer committed on every node
+            replay = replay_ledger([(clients[c].public, seq, r, a)
+                                    for c in range(n_clients) for seq, r, a in run_a[c] + run_b[c]])
+            for i, port in enumerate(net.rpc_ports):
+                async with Client(f"http://127.0.0.1:{port}") as conn:
+                    for kp in clients:
+                        seq = await conn.get_last_sequence(kp.public)
+                        bal = await conn.get_balance(kp.public)
+                        check([seq, bal] == replay[kp.public.hex()],
+                              f"node {i}: {kp.public.hex()[:12]} has sequence {seq}, balance {bal}; "
+                              f"the replay says {replay[kp.public.hex()]}")
+            log(f"node net: {len(clients)} accounts equal the python-int replay on all {net.n} nodes; "
+                f"{sum(refused_total.values())} tampered transfers refused with INVALID_ARGUMENT")
+        finally:
+            rcs = net.stop()
+        check(rcs == [0] * net.n, f"servers exited with {rcs} on SIGTERM")
+        log("node net: every server exited 0 on SIGTERM")
+    return runs
+
+
+def _lanes(st: dict) -> float:
+    """Kernel lanes a verifier has launched since its node started
+    (signatures plus padding), from its cumulative occupancy."""
+    occ = st.get("verifier_batch_occupancy", 0.0)
+    return st["verifier_signatures"] / occ if occ else 0.0
+
+
+def node_checks(net: ServerNet, run: dict, by_lanes, card, kind: str, refused: Counter) -> dict:
+    """After a run: each node's /metrics (audit_divergence 0,
+    rejected_at_ingress equal to the tampered transfers refused there so
+    far), verifier counters and the card in its /statusz build block."""
+    label = run["label"]
+    per_node, launches = [], 0
+    for i in range(net.n):
+        status, status0 = net.statusz(i), run["before"][i]
+        st, st0 = status["stats"], status0["stats"]
+        m = net.metrics(i)
+        check(m["at2_audit_divergence"] == 0, f"node {i}: audit_divergence {m['at2_audit_divergence']}")
+        check(m["at2_rejected_at_ingress_total"] == refused[i],
+              f"node {i}: rejected_at_ingress {m['at2_rejected_at_ingress_total']}, {refused[i]} refused")
+        sigs = st["verifier_signatures"] - st0["verifier_signatures"]
+        check(sigs > 0, f"{label} node {i}: the verifier checked no signature")
+        # the CPU kind (a rehearsal off the card) has no batches
+        batches = st.get("verifier_batches", 0) - st0.get("verifier_batches", 0)
+        node_launches = 0
+        if kind == "cuda":
+            check(batches > 0, f"{label} node {i}: the verifier dispatched no batch")
+            check(status["build"].get("device") == card,
+                  f"node {i}'s build block names {status['build'].get('device')!r}, not {card!r}")
+            # the process-wide count: a `server run` process holds one verifier
+            node_launches = status["build"]["kernel_launches"] - status0["build"]["kernel_launches"]
+            check(node_launches == batches, f"{label} node {i}: {batches} batches, {node_launches} launches")
+        launches += node_launches
+        per_node.append({
+            "signatures": sigs, "batches": batches, "launches": node_launches,
+            # this run's: signatures over the lanes its batches launched
+            "batch_occupancy": sigs / (_lanes(st) - _lanes(st0)) if batches else 0.0,
+            "rejected_at_ingress": int(m["at2_rejected_at_ingress_total"]),
+            "kernel_busy_share": (node_launches * by_lanes[256]["ms"] / (1e3 * run["wall_s"])
+                                  if by_lanes else None),
+            "stage_histograms": status["verifier_stages"],
+        })
+    if kind == "cuda":
+        check(launches > 0, f"{label}: ran without launching the kernel")
+    log(f"{label}: {run['transfers']} transfers from {run['clients']} clients "
+        f"committed on all {net.n} nodes in {run['wall_s']:.3f} s = {run['tx_per_s']:,.0f} tx/s "
+        f"(first submission to last commit); client signing {run['sign_s']:.3f} s measured apart, "
+        f"submission {run['submit_s']:.3f} s; {launches} kernel launches")
+    for i, p in enumerate(per_node):
+        busy = p["kernel_busy_share"]
+        log(f"{label} node {i}: {p['signatures']} signatures verified, {p['batches']} batches, "
+            f"occupancy {p['batch_occupancy']:.3f}, rejected_at_ingress {p['rejected_at_ingress']}"
+            + (f", kernel busy {100 * busy:.1f}% of the wall time (phase 3 times)" if busy is not None else ""))
+        log(f"{label} node {i} stage histograms since the node started:",
+            json.dumps(p.pop("stage_histograms"), sort_keys=True))
+    return {"launches": launches, "tx_per_s": run["tx_per_s"], "wall_s": run["wall_s"],
+            "transfers": run["transfers"], "sign_s": run["sign_s"], "submit_s": run["submit_s"],
+            "nodes": per_node}
+
+
 def device_share(run: dict, by_lanes: dict) -> float:
     """Kernel time on the card over the run's wall time, from phase 3's
     per-bucket kernel times (device clock) and the run's flush buckets."""
@@ -857,6 +1268,7 @@ def main() -> None:
     kp = kernel_vs_plain(torch, mat, rng)
     mp = asyncio.run(main_path(mat, rng))
     net = asyncio.run(net_path(args.seed, kp["by_lanes"]))
+    nodes = asyncio.run(node_path(args.seed, kp["by_lanes"], torch.cuda.get_device_name(0)))
     from at2_node_tpu_torch.ops import cuda_verify
 
     runs = {}
@@ -870,6 +1282,7 @@ def main() -> None:
             "flush_buckets": {str(b): c for b, c in sorted(Counter(run["buckets"]).items())},
         }
     runs.update(net)
+    runs.update(nodes)
     top = kp["by_lanes"][65536]
     kernels = {"kernels": [{
         "name": "ed25519_verify",

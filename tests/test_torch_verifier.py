@@ -224,10 +224,17 @@ async def test_rlc_modes_and_other_kinds_raise():
     for kind in ("tpu", "pool"):
         with pytest.raises(ValueError):
             make_verifier(kind, device="cpu")
-    # the CPU verifier is per-sig only: the reference's auto routes to RLC
-    for mode in ("auto", "rlc"):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            make_verifier("cpu", mode=mode)
+    # the CPU verifier takes every mode, as the reference's does (its RLC
+    # route is the host engine); auto is its default
+    for mode in ("auto", "rlc", "per_sig"):
+        cpu = make_verifier("cpu", mode=mode)
+        assert cpu.stats()["mode_name"] == mode
+        await cpu.close()
+    cpu = make_verifier("cpu")
+    assert cpu.mode == "auto" and cpu.router.min_batch == 128
+    await cpu.close()
+    with pytest.raises(ValueError):
+        make_verifier("cpu", mode="fast")
     ver = CudaBatchVerifier(device="cpu", mode="per_sig", rlc_min_batch=128)
     assert ver.stats()["mode_name"] == "per_sig"
     await ver.close()
@@ -264,7 +271,8 @@ async def test_cpu_verifier_matches_the_reference_per_sig(n, native, monkeypatch
     if not native:
         monkeypatch.setenv("AT2_NO_NATIVE_INGEST", "1")
     items = _cpu_items(n)
-    ver, ref = make_verifier("cpu", max_workers=3), RefCpuVerifier(mode="per_sig")
+    ver = make_verifier("cpu", max_workers=3, mode="per_sig")
+    ref = RefCpuVerifier(mode="per_sig")
     assert isinstance(ver, CpuVerifier)
     await ver.warmup()
     assert ingest.ingest_ready() == native
@@ -273,6 +281,9 @@ async def test_cpu_verifier_matches_the_reference_per_sig(n, native, monkeypatch
     assert got[0] is True and (n < 3 or not all(got))
     assert await ver.verify(*items[0]) is True
     assert await ver.verify_many([]) == []
-    assert ver.stats() == {"signatures": n + 1, "mode": 0, "mode_name": "per_sig"}
+    st = ver.stats()
+    assert set(st) == set(ref.stats())
+    assert st["signatures"] == n + 1 and st["mode"] == 0 and st["mode_name"] == "per_sig"
+    assert st["route_rlc"] == 0 and st["rlc_batches"] == 0
     await ver.close()
     await ref.close()

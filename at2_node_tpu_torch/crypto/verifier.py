@@ -18,12 +18,13 @@ and upload, kernel launch, completion) on three executor threads, so
 consecutive batches overlap. A flush goes out when the queue reaches
 ``batch_size`` or when the oldest request has waited ``max_delay``,
 whichever comes first; a backlog deeper than ``batch_size`` coalesces into
-the largest bucket it can fill. Its RLC route (the device graphs of the
-JAX package's ``ops/aggregate.py``) is not ported yet (ROADMAP.md, queue 1,
-item 8): it takes ``mode="per_sig"``, and ``auto`` without
-``rlc_min_batch``, which on the reference's device path never routes a
-flush to RLC either; ``rlc``, or ``auto`` with ``rlc_min_batch``, raises
-``NotImplementedError``.
+the largest bucket it can fill. Its RLC route (``ops/aggregate.py``, the
+kernels of ``ops/cuda_rlc.py``) runs a flush as one classified RLC check
+through the same three stages, and falls back to one exact per-signature
+pass over the flush when the equation fails or a lane must be rerouted.
+``mode="rlc"`` sends every flush there; ``auto`` does so only for flushes
+of ``rlc_min_batch`` or more, and never without it, as on the reference's
+device path.
 """
 
 from __future__ import annotations
@@ -40,17 +41,12 @@ import numpy as np
 import torch
 
 from ..obs.registry import Histogram
-from ..ops import cuda_verify
+from ..ops import aggregate as agg
+from ..ops import cuda_rlc, cuda_verify
 from ..ops import ed25519 as kernel
 from .keys import verify_one
 
 _MODE_CODES = {"per_sig": 0, "rlc": 1, "auto": 2}
-
-_DEVICE_RLC_NOT_PORTED = (
-    "the CUDA verifier's RLC route is not ported yet (ROADMAP.md, queue 1, "
-    "item 8: ops/aggregate.py -> device RLC verify); use mode='per_sig', or "
-    "'auto' without rlc_min_batch"
-)
 
 
 class Verifier(Protocol):
@@ -568,7 +564,10 @@ class CudaBatchVerifier:
     * ``_finish`` — waits for the batch's completion event, unpacks the
       verdicts and gives the staging buffer back.
 
-    Up to ``PIPELINE_DEPTH`` batches are in flight past launch. Each stage
+    A flush the router sends to RLC runs ``_prep_rlc``, ``_launch_rlc`` and
+    ``_finish_rlc`` in their place, and ``_resolve_rlc`` turns its (eq_ok,
+    codes) into exact verdicts. Up to ``PIPELINE_DEPTH`` batches are in
+    flight past launch. Each stage
     thread enters the verifier's device and uses the verifier's streams.
     ``device`` None means cuda:0 and raises without a GPU; ``device="cpu"``
     runs the plain PyTorch version (tests).
@@ -589,14 +588,15 @@ class CudaBatchVerifier:
     ) -> None:
         from ..clock import SYSTEM_CLOCK
 
-        if mode not in _MODE_CODES:
-            raise ValueError(f"unknown verifier mode: {mode!r}")
-        if mode == "rlc" or (mode == "auto" and rlc_min_batch is not None):
-            raise NotImplementedError(_DEVICE_RLC_NOT_PORTED)
         self.device = cuda_verify.resolve_device(device)
         # the reference's device default: auto never routes a flush to RLC
-        # unless the operator opts in with rlc_min_batch, which raises above
-        self.router = VerifyRouter(mode, min_batch=1 << 30)
+        # unless the operator opts in with rlc_min_batch; "rlc" forces it
+        self.router = VerifyRouter(
+            mode, min_batch=rlc_min_batch if rlc_min_batch is not None else 1 << 30
+        )
+        self.rlc_batches = 0
+        self.rlc_fallbacks = 0
+        self.rlc_reroutes = 0
         self.batch_size = batch_size
         self.max_delay = max_delay
         self._clock = SYSTEM_CLOCK if clock is None else clock
@@ -614,6 +614,9 @@ class CudaBatchVerifier:
         self._cap_cond = asyncio.Condition()
         self._wakeup = asyncio.Event()
         self._staging = kernel.StagingPool(pinned=self.device.type == "cuda")
+        self._rlc_staging = kernel.StagingPool(
+            pinned=self.device.type == "cuda", width=agg.RLC_PACKED_WIDTH
+        )
         if self.device.type == "cuda":
             self._copy_stream = torch.cuda.Stream(self.device)
             self._compute_stream = torch.cuda.Stream(self.device)
@@ -673,9 +676,9 @@ class CudaBatchVerifier:
             **self.h_queue_wait.flat("queue_wait"),
             "mode": _MODE_CODES[self.router.mode],
             "mode_name": self.router.mode,
-            "rlc_batches": 0,
-            "rlc_fallbacks": 0,
-            "rlc_reroutes": 0,
+            "rlc_batches": self.rlc_batches,
+            "rlc_fallbacks": self.rlc_fallbacks,
+            "rlc_reroutes": self.rlc_reroutes,
             **self.router.stats(),
         }
 
@@ -904,32 +907,73 @@ class CudaBatchVerifier:
             return kernel.finish_packed(handle, n, self._staging)
 
     def _run_batch(self, pks, msgs, sigs, bucket) -> np.ndarray:
-        """The three stages back to back (warm-up)."""
+        """The three stages back to back (warm-up, and the exact pass of a
+        failed RLC flush)."""
         return self._finish(self._launch(self._prep(pks, msgs, sigs, bucket)), len(pks))
 
+    # -- RLC stages: the same three threads, but the device runs one
+    # classified RLC check (ops/aggregate.py) instead of the per-signature
+    # kernel; _resolve_rlc interprets its (eq_ok, codes) ---------------------
+
+    def _prep_rlc(self, pks, msgs, sigs, bucket):
+        with self._device_ctx():
+            host = agg.rlc_prep(pks, msgs, sigs, bucket, self._rlc_staging)
+            return agg.rlc_upload(host, self.device, self._copy_stream)
+
+    def _launch_rlc(self, uploaded):
+        with self._device_ctx():
+            return agg.rlc_launch(uploaded, self._compute_stream)
+
+    def _finish_rlc(self, handle, n: int):
+        with self._device_ctx():
+            return agg.rlc_finish(handle, n, self._rlc_staging)
+
+    def _run_batch_rlc(self, pks, msgs, sigs, bucket):
+        return self._finish_rlc(
+            self._launch_rlc(self._prep_rlc(pks, msgs, sigs, bucket)), len(pks)
+        )
+
     async def warmup(self) -> None:
-        """Build the kernel and run EVERY bucket before serving traffic, so
+        """Build the kernels and run EVERY bucket before serving traffic, so
         the first real signature never waits for nvcc or a first launch.
         Each bucket carries one good and one tampered signature and must
-        return exactly [True, False]; then one request goes through the
-        full accumulate/flush path."""
+        return exactly [True, False]; where the router can route to RLC, the
+        RLC stages must give eq_ok with code 1 for the good signature alone
+        and no eq_ok with the tampered one beside it. Then one request goes
+        through the full accumulate/flush path."""
         from .keys import SignKeyPair
 
         kp = SignKeyPair.from_hex("01" * 32)
         msg = b"verifier warmup"
         sig = kp.sign(msg)
+        pks, msgs, sigs = [kp.public, kp.public], [msg, msg + b"!"], [sig, sig]
         loop = asyncio.get_running_loop()
+        # whether the router can send a flush to RLC at all
+        mode = self.router.mode
+        warm_rlc = mode == "rlc" or (mode == "auto" and self.router.min_batch < (1 << 30))
         if self.device.type == "cuda":
             await loop.run_in_executor(self._device_pool, cuda_verify.build)
+            if warm_rlc:
+                await loop.run_in_executor(self._device_pool, cuda_rlc.build)
         for bucket in self.buckets:
             out = await loop.run_in_executor(
-                self._device_pool, self._run_batch,
-                [kp.public, kp.public], [msg, msg + b"!"], [sig, sig], bucket,
+                self._device_pool, self._run_batch, pks, msgs, sigs, bucket
             )
             if out.tolist() != [True, False]:
                 raise RuntimeError(
                     f"verifier warm-up failed for bucket {bucket}: {out.tolist()}"
                 )
+            if warm_rlc:
+                good = await loop.run_in_executor(
+                    self._device_pool, self._run_batch_rlc, pks[:1], msgs[:1], sigs[:1], bucket
+                )
+                both = await loop.run_in_executor(
+                    self._device_pool, self._run_batch_rlc, pks, msgs, sigs, bucket
+                )
+                if not (good[0] and good[1].tolist() == [1]) or both[0]:
+                    raise RuntimeError(
+                        f"rlc warm-up failed for bucket {bucket}: {good}, {both}"
+                    )
         if not await self.verify(kp.public, msg, sig):
             raise RuntimeError("verifier warm-up batch failed to verify")
 
@@ -959,37 +1003,69 @@ class CudaBatchVerifier:
         # waiting for an in-flight slot is queue time to the caller
         self.h_queue_wait.observe(self._clock.monotonic() - batch[0].enqueued_at)
         await self._inflight.acquire()
-        if self.router.mode != "per_sig":
-            self.router.choose(pks)  # always "per_sig": the device RLC route is item 8
+        # route this flush: per dispatch, from its size and the per-source
+        # failure rates; per_sig mode always takes the per-signature kernel
+        rlc = self.router.mode != "per_sig" and self.router.choose(pks) == "rlc"
         # the clock starts after the depth gate: dispatch latency is one
         # batch's prep -> results time, not its queue wait
         t0 = self._clock.monotonic()
         try:
             prepared = await loop.run_in_executor(
-                self._prep_pool, self._prep, pks, msgs, sigs, bucket
+                self._prep_pool, self._prep_rlc if rlc else self._prep, pks, msgs, sigs, bucket
             )
             t1 = self._clock.monotonic()
             self.total_prep_s += t1 - t0
             self.h_prep.observe(t1 - t0)
-            handle = await loop.run_in_executor(self._device_pool, self._launch, prepared)
+            handle = await loop.run_in_executor(
+                self._device_pool, self._launch_rlc if rlc else self._launch, prepared
+            )
             t2 = self._clock.monotonic()
             self.total_launch_s += t2 - t1
             self.h_launch.observe(t2 - t1)
-            finish = loop.run_in_executor(self._finish_pool, self._finish, handle, len(batch))
+            finish = loop.run_in_executor(
+                self._finish_pool, self._finish_rlc if rlc else self._finish, handle, len(batch)
+            )
         except BaseException as exc:
             self._inflight.release()
             self._fail_batch(batch, exc)
             if isinstance(exc, asyncio.CancelledError):
                 raise
             return
-        task = loop.create_task(self._complete(batch, bucket, finish, t0))
+        task = loop.create_task(self._complete(batch, bucket, finish, t0, rlc))
         self._completions.add(task)
         task.add_done_callback(self._completions.discard)
 
-    async def _complete(self, batch, bucket, finish, t0) -> None:
+    async def _resolve_rlc(self, batch, bucket, out) -> np.ndarray:
+        """Exact per-lane verdicts from an RLC flush's (eq_ok, codes): the
+        codes themselves when the equation holds and no lane is rerouted,
+        else one exact per-signature kernel pass over the same flush (on the
+        card one launch resolves every lane, so it is the whole bisection).
+        Runs while the flush still holds its pipeline slot."""
+        eq_ok, codes = out
+        self.rlc_batches += 1
+        reroutes = int((codes == 2).sum())
+        self.rlc_reroutes += reroutes
+        if eq_ok and not reroutes:
+            results = codes == 1
+        else:
+            self.rlc_fallbacks += 1
+            loop = asyncio.get_running_loop()
+            pks = [p.public_key for p in batch]
+            msgs = [p.message for p in batch]
+            sigs = [p.signature for p in batch]
+            results = await loop.run_in_executor(
+                self._device_pool, self._run_batch, pks, msgs, sigs, bucket
+            )
+        if self.router.mode == "auto":
+            self.router.observe([(p.public_key, bool(ok)) for p, ok in zip(batch, results)])
+        return results
+
+    async def _complete(self, batch, bucket, finish, t0, rlc=False) -> None:
         t_fin = self._clock.monotonic()
         try:
             results = await finish
+            if rlc:
+                results = await self._resolve_rlc(batch, bucket, results)
         except BaseException as exc:
             self._fail_batch(batch, exc)
             if isinstance(exc, asyncio.CancelledError):

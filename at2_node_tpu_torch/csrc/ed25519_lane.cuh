@@ -1,6 +1,8 @@
-// ed25519 verification math for the Hopper kernel: GF(2^255-19), RFC 8032
+// ed25519 verification math for the Hopper kernels: GF(2^255-19), RFC 8032
 // decompression, and the extended-coordinate point operations run by a
-// "quad", four threads that verify one signature together.
+// "quad", four threads that verify one signature (ed25519_verify.cu) or
+// classify one lane of the RLC check (ed25519_rlc.cu, quad_rlc below)
+// together.
 //
 // The same source builds two ways. Under nvcc the quad functions are
 // __device__ and each thread of a quad runs one role (its lane mod 4);
@@ -60,7 +62,7 @@ constexpr int CONST_SQRT_M1 = 20;
 constexpr int CONST_BX = 30;
 constexpr int CONST_BY = 40;
 constexpr int CONST_BTABLE = 50;
-constexpr int TABLE_ENTRIES = 9;     // multiples 0..8 of -A: signed radix-16 digits
+constexpr int TABLE_ENTRIES = 9;     // multiples 0..8 of -A (of R, A): signed radix-16 digits
 constexpr int BTABLE_ENTRIES = 129;  // multiples 0..128 of B: signed radix-256 digits
 constexpr int ENTRY_WORDS = 4 * NL;
 constexpr int CONST_WORDS = CONST_BTABLE + BTABLE_ENTRIES * ENTRY_WORDS;
@@ -602,6 +604,73 @@ QUAD_FN void quad_store(int32_t* tab, int stride, int e, const QFe& q) {
   for (int j = 0; j < QN; j++) tab_store(tab, stride, e, role(j), q.r[j]);
 }
 
+// Entry e of `tab` as stored by quad_store: role k reads component k.
+QUAD_FN QFe quad_load(const int32_t* tab, int stride, int e) {
+  QFe p;
+  for (int j = 0; j < QN; j++) p.r[j] = tab_load(tab, stride, e, role(j));
+  return p;
+}
+
+QUAD_FN QFe quad_select(bool c, const QFe& a, const QFe& b) {
+  QFe r;
+  for (int j = 0; j < QN; j++) r.r[j] = fe_select(c, a.r[j], b.r[j]);
+  return r;
+}
+
+// The identity (0 : 1 : 1 : 0) in extended coordinates.
+QUAD_FN QFe quad_identity() {
+  QFe p;
+  for (int j = 0; j < QN; j++) {
+    const int k = role(j);
+    p.r[j] = fe_small(k == 1 || k == 2 ? 1 : 0);
+  }
+  return p;
+}
+
+// The identity in cached form (Y-X, Y+X, 2Z, 2dT) = (1, 1, 2, 0).
+QUAD_FN QFe quad_cached_identity() {
+  QFe c;
+  for (int j = 0; j < QN; j++) {
+    const int k = role(j);
+    c.r[j] = fe_small(k < 2 ? 1 : (k == 2 ? 2 : 0));
+  }
+  return c;
+}
+
+// Multiples 0..8 of the extended point p in cached form into `tab`
+// (TABLE_ENTRIES entries at `stride`): 2m by doubling m, 2m+1 = 2m + p.
+// Returns p in cached form.
+QUAD_FN QFe quad_table(const QFe& p, const Fe& d2, int32_t* tab, int stride) {
+  quad_store(tab, stride, 0, quad_cached_identity());
+  const QFe p_cached = quad_cache(p, d2);
+  quad_store(tab, stride, 1, p_cached);
+#pragma unroll 1
+  for (int m = 1; m < 4; m++) {
+    quad_sync();
+    const QFe dbl = quad_double(quad_uncache(tab, stride, m));
+    quad_store(tab, stride, 2 * m, quad_cache(dbl, d2));
+    quad_store(tab, stride, 2 * m + 1, quad_cache(quad_add(dbl, p_cached), d2));
+  }
+  quad_sync();
+  quad_store(tab, stride, 8, quad_cache(quad_double(quad_uncache(tab, stride, 4)), d2));
+  quad_sync();
+  return p_cached;
+}
+
+// p == (0 : 1 : 1): X == 0 and Y == Z on canonical limbs (the 2-torsion
+// point (0, -1) fails the second clause); every role holds the answer.
+QUAD_FN bool quad_is_identity(const QFe& p) {
+  QInt part;
+  for (int j = 0; j < QN; j++) {
+    const int k = role(j);
+    const Fe z = qget(p, j, 2);
+    part.r[j] = k == 0 ? fe_is_zero_canonical(fe_canonical(p.r[j])) : fe_eq(p.r[j], z);
+  }
+  bool out = false;
+  for (int j = 0; j < QN; j++) out = qget(part, j, 0) & qget(part, j, 1);
+  return out;
+}
+
 // The verdict of one packed row, [S]B + [h](-A) == R (the RFC 8032
 // cofactorless check) AND valid AND both points decoded, held by role 0.
 //   consts: CONST_WORDS words (the base table included);
@@ -641,24 +710,12 @@ QUAD_FN bool quad_verify(const uint8_t* row, const int32_t* consts, int32_t* ata
     neg_a.r[j] = fe_select(k & 1, qget(handoff, j, k ^ 1), own.r[j]);
   }
 
-  // multiples 0..8 of -A, cached: 2m by doubling m, 2m+1 = 2m + (-A)
-  QFe ident;
-  for (int j = 0; j < QN; j++) {
-    const int k = role(j);
-    ident.r[j] = fe_small(k < 2 ? 1 : (k == 2 ? 2 : 0));
-  }
-  quad_store(atab, astride, 0, ident);
-  const QFe neg_a_cached = quad_cache(neg_a, d2);
-  quad_store(atab, astride, 1, neg_a_cached);
-#pragma unroll 1
-  for (int m = 1; m < 4; m++) {
-    quad_sync();
-    const QFe dbl = quad_double(quad_uncache(atab, astride, m));
-    quad_store(atab, astride, 2 * m, quad_cache(dbl, d2));
-    quad_store(atab, astride, 2 * m + 1, quad_cache(quad_add(dbl, neg_a_cached), d2));
-  }
-  quad_sync();
-  quad_store(atab, astride, 8, quad_cache(quad_double(quad_uncache(atab, astride, 4)), d2));
+  // multiples 0..8 of -A, cached
+  quad_table(neg_a, d2, atab, astride);
+  // (1, 1, 2, 0) taken as an extended point is not the identity, but two
+  // doublings make it (0 : Y : Y : 0): with both carries 0 (h and S below
+  // L) the first window's doublings turn it into the identity
+  const QFe ident = quad_cached_identity();
 
   // signed digits of h (radix 16, stored by role 0) and S (radix 256,
   // stored by role 1); every role recodes both, so all hold the carries
@@ -711,6 +768,143 @@ QUAD_FN bool quad_verify(const uint8_t* row, const int32_t* consts, int32_t* ata
   lane_counts.on = true;
 #endif
   return verdict;
+}
+
+// -- the RLC lane (ops/aggregate.py's classified check) -------------------
+
+constexpr int RLC_ROW_BYTES = 161;   // a(32) | r(32) | z(32) | zh(32) | zs(32) | valid(1)
+constexpr int RLC_DIGIT_WORDS = 24;  // z's and zh's (radix 16) and zs's (radix 256) digits, per quad
+constexpr int POINT_WORDS = 4 * NL;
+
+// Digit i of L = 2^252 + 27742317777372353535851937790883648493 in signed
+// radix 16 (L = sum d_i 16^i, d_i in [-8, 7], no carry), 4-bit two's
+// complement, 16 to a 64-bit word. Digit 63 is 1, digits 32..62 are 0 and
+// 30 of digits 0..31 are not: the words are immediates, so the table costs
+// no memory in either build.
+LANE_FN int l_digit(int i) {
+  const uint64_t w = i < 16 ? 0x6812632a6df6d4fdULL
+                   : i < 32 ? 0x15ef0aefa308add6ULL
+                   : i < 48 ? 0x0ULL
+                            : 0x1000000000000000ULL;
+  const int d = (int)((w >> (4 * (i & 15))) & 15);
+  return d - ((d & 8) << 1);
+}
+
+// [L]p == identity, exactly: Horner over L's signed digits with p's table
+// of multiples 0..8 (cached), from acc = p (the top digit): 252 doublings
+// and 30 additions. The branch on a digit is the same in every thread.
+QUAD_FN bool quad_torsion_free(const QFe& p, const int32_t* tab, int stride) {
+  QFe acc = p;
+#pragma unroll 1
+  for (int w = 62; w >= 0; w--) {
+#pragma unroll 1
+    for (int i = 0; i < 4; i++) acc = quad_double(acc);
+    const int d = l_digit(w);
+    if (d != 0) acc = quad_add(acc, quad_lookup(tab, stride, d));
+  }
+  return quad_is_identity(acc);
+}
+
+// One packed RLC row: decompress A and R, check [L]A and [L]R, classify,
+// and the residual e = [z]R + [zh]A - [zs]B. Returns the lane code, held
+// by every role: 2 when the row is valid and A is undecodable or carries
+// torsion (reroute to the exact check), else 0 when the row is invalid or
+// R is undecodable or carries torsion, else 1 (in the equation). `e` is
+// the residual whatever the code; the caller masks it.
+//   consts: CONST_WORDS words (the base table included);
+//   rtab, atab: this quad's tables of R and A, TABLE_ENTRIES cached
+//           entries each at `tstride`;
+//   digits: RLC_DIGIT_WORDS words at `dstride` for the recoded scalars.
+QUAD_FN int quad_rlc(const uint8_t* row, const int32_t* consts, int32_t* rtab, int32_t* atab,
+                     int tstride, uint32_t* digits, int dstride, QFe* e) {
+  const Fe one = fe_small(1);
+  const Fe d2 = fe_load(consts + CONST_D2);
+
+  // Roles 0 and 2 decompress A, roles 1 and 3 R, as in quad_verify; roles
+  // 2 and 3 form T = xy. Then every role gathers coordinate k of both
+  // points: A from roles 0 and 2, R from roles 1 and 3. An undecodable
+  // point is the base point, so its torsion check passes vacuously and
+  // its decode bit carries the rejection.
+  QFe xs, ys, ts;
+  QInt decoded;
+  for (int j = 0; j < QN; j++) {
+    const int k = role(j);
+    quad_used(j, 0x3);
+    Fe x, y;
+    decoded.r[j] = decompress(row + 32 * (k & 1), consts, &x, &y);
+    quad_used(j, 0xC);
+    ts.r[j] = fe_mul(x, y);
+    xs.r[j] = x;
+    ys.r[j] = y;
+  }
+  QFe a, r;
+  bool a_ok = false, r_ok = false;
+  for (int j = 0; j < QN; j++) {
+    const int k = role(j);
+    const Fe ax = qget(xs, j, 0), ay = qget(ys, j, 0), at = qget(ts, j, 2);
+    const Fe rx = qget(xs, j, 1), ry = qget(ys, j, 1), rt = qget(ts, j, 3);
+    a.r[j] = fe_select(k == 0, ax, fe_select(k == 1, ay, fe_select(k == 2, one, at)));
+    r.r[j] = fe_select(k == 0, rx, fe_select(k == 1, ry, fe_select(k == 2, one, rt)));
+    a_ok = qget(decoded, j, 0);
+    r_ok = qget(decoded, j, 1);
+  }
+
+  // the tables of R and A, then [L]R and [L]A, in one rolled loop so the
+  // point operations are compiled once
+  bool r_free = false, a_free = false;
+#pragma unroll 1
+  for (int t = 0; t < 2; t++) {
+    int32_t* tab = t == 0 ? rtab : atab;
+    const QFe p = quad_select(t == 0, r, a);
+    quad_table(p, d2, tab, tstride);
+    const bool clean = quad_torsion_free(p, tab, tstride);
+    r_free = t == 0 ? clean : r_free;
+    a_free = t == 1 ? clean : a_free;
+  }
+
+  // signed digits of z and zh (radix 16, stored by roles 0 and 1) and zs
+  // (radix 256, role 2); every role recodes all three for the carries out
+  // of the top digit, which start the accumulator: acc = [z_64]R +
+  // [zh_64]A - [zs_32]B. Then 32 steps, most significant first, of two
+  // radix-16 windows of z and zh and one radix-256 digit of -zs.
+  const uint8_t* z_le = row + 64;
+  const uint8_t* zh_le = row + 96;
+  const uint8_t* zs_le = row + 128;
+  uint32_t* z_digits = digits;
+  uint32_t* zh_digits = digits + 8 * dstride;
+  uint32_t* zs_digits = digits + 16 * dstride;
+  int zh_top = 0, zs_top = 0;
+  QFe acc;
+  const QFe ident = quad_identity();
+  for (int j = 0; j < QN; j++) {
+    const int k = role(j);
+    const int z_top = recode<4>(z_le, z_digits, dstride, k == 0);
+    zh_top = recode<4>(zh_le, zh_digits, dstride, k == 1);
+    zs_top = recode<8>(zs_le, zs_digits, dstride, k == 2);
+    acc.r[j] = fe_select(z_top, r.r[j], ident.r[j]);
+  }
+  quad_sync();
+  const int32_t* btab = consts + CONST_BTABLE;
+  acc = quad_add(acc, quad_lookup(atab, tstride, zh_top));
+  acc = quad_add(acc, quad_lookup(btab, 4, -zs_top));
+#pragma unroll 1
+  for (int w = 31; w >= 0; w--) {
+#pragma unroll 1
+    for (int half = 1; half >= 0; half--) {
+#pragma unroll 1
+      for (int i = 0; i < 4; i++) acc = quad_double(acc);
+      acc = quad_add(acc, quad_lookup(rtab, tstride, digit<4>(z_digits, dstride, 2 * w + half)));
+      acc = quad_add(acc, quad_lookup(atab, tstride, digit<4>(zh_digits, dstride, 2 * w + half)));
+    }
+    acc = quad_add(acc, quad_lookup(btab, 4, -digit<8>(zs_digits, dstride, w)));
+  }
+  *e = acc;
+#ifndef __CUDACC__
+  lane_counts.on = true;
+#endif
+  const bool valid = row[160] != 0;
+  const bool a_tainted = !(a_ok & a_free);
+  return !valid ? 0 : (a_tainted ? 2 : ((r_ok & r_free) ? 1 : 0));
 }
 
 }  // namespace ed25519_lane

@@ -38,6 +38,21 @@ void ed25519_lane_verify_rows(const uint8_t* packed, int64_t n, const int32_t* c
   }
 }
 
+// codes[i] and the residual [z]R + [zh]A - [zs]B (an extended point, (4,
+// 10) limbs, unmasked) of the host quad's RLC lane math on packed RLC row
+// i (ops/aggregate.py RLC_PACKED_WIDTH bytes), for n rows
+void ed25519_lane_rlc_rows(const uint8_t* packed, int64_t n, const int32_t* consts,
+                           uint8_t* codes, int32_t* residuals) {
+  int32_t rtab[TABLE_ENTRIES * ENTRY_WORDS];
+  int32_t atab[TABLE_ENTRIES * ENTRY_WORDS];
+  uint32_t digits[RLC_DIGIT_WORDS];
+  for (int64_t i = 0; i < n; i++) {
+    QFe e;
+    codes[i] = (uint8_t)quad_rlc(packed + i * RLC_ROW_BYTES, consts, rtab, atab, 4, digits, 1, &e);
+    quad_to(e, residuals + POINT_WORDS * i);
+  }
+}
+
 // The signed radix-2^bits digits (bits 4 or 8) of n 32-byte little-endian
 // scalars and the carry: 256 / bits + 1 values per scalar.
 void ed25519_lane_recode(const uint8_t* scalars, int64_t n, int bits, int16_t* out) {

@@ -80,13 +80,13 @@ class VerifierConfig:
     batch_size: int = 256
     max_delay: float = 0.002
     # Amortized verification: "auto" routes big clean batches to one RLC
-    # check per flush (CPU kind; the CUDA kind keeps the per-sig kernel,
-    # and its RLC route is not ported yet), "rlc" forces the RLC path,
-    # "per_sig" pins per-signature verification.
+    # check per flush (on the CUDA kind only with rlc_min_batch set), "rlc"
+    # forces the RLC path (the CUDA kind's RLC kernels, or the CPU kind's
+    # host engine), "per_sig" pins per-signature verification.
     mode: str = "auto"
     # Smallest flush worth one RLC check. None keeps each verifier's
     # default: 128 on the CPU engine, opt-out on the CUDA kind — setting
-    # it there is an opt-in to the device RLC route (ROADMAP.md, item 8).
+    # it there is an opt-in to the device RLC route.
     rlc_min_batch: Optional[int] = None
 
     def __post_init__(self) -> None:

@@ -1400,10 +1400,12 @@ class Service(At2Servicer):
         process's config hash, start time, and uptime. profile_collect
         and regress.py stamp their reports with the static half.
 
-        ``kernel_launches`` is a process-wide figure, not this node's: the
-        ed25519 kernel's launches by every verifier in the process (a
-        ``server run`` process holds one)."""
-        from ..ops import cuda_verify
+        ``kernel_launches``, ``rlc_kernel_launches`` and
+        ``rlc_fold_launches`` are process-wide figures, not this node's: the
+        launches of the ed25519 verify kernel and of the two RLC kernels by
+        every verifier in the process (a ``server run`` process holds
+        one)."""
+        from ..ops import cuda_rlc, cuda_verify
 
         return {
             **build_info(),
@@ -1411,6 +1413,8 @@ class Service(At2Servicer):
             "started_wall": round(self._started_wall, 3),
             "uptime_s": round(self.clock.monotonic() - self._started_at, 3),
             "kernel_launches": cuda_verify.launches,
+            "rlc_kernel_launches": cuda_rlc.launches,
+            "rlc_fold_launches": cuda_rlc.fold_launches,
         }
 
     def statusz(self) -> dict:

@@ -171,15 +171,17 @@ def verify_packed(packed: torch.Tensor) -> torch.Tensor:
 
 
 class StagingPool:
-    """A small ring of (bucket, 129) host buffers per bucket, pinned when
+    """A small ring of (bucket, width) host buffers per bucket, pinned when
     the batches go to a CUDA device so the upload can be asynchronous.
     A buffer is taken in prep and given back in :func:`finish_packed`,
-    after its batch's completion event, so reuse never races a copy."""
+    after its batch's completion event, so reuse never races a copy.
+    ``width`` is the row's: 129 here, 161 for ``ops.aggregate``'s rows."""
 
     CAP_PER_BUCKET = 8  # > the verifier's pipeline depth
 
-    def __init__(self, pinned: bool) -> None:
+    def __init__(self, pinned: bool, width: int = PACKED_WIDTH) -> None:
         self.pinned = pinned
+        self.width = width
         self._free: dict[int, list[torch.Tensor]] = {}
         self._lock = threading.Lock()
 
@@ -189,7 +191,7 @@ class StagingPool:
             if pool:
                 return pool.pop()
         return torch.empty(
-            (bucket, PACKED_WIDTH), dtype=torch.uint8, pin_memory=self.pinned
+            (bucket, self.width), dtype=torch.uint8, pin_memory=self.pinned
         )
 
     def release(self, buf: torch.Tensor) -> None:

@@ -7,10 +7,11 @@ Phases (any failure raises, the exit code is non-zero and no result line
 is printed):
 
 1. Device report: torch, CUDA, the card's name and power limit.
-2. Build: the CUDA kernel (nvcc, sm_90a, always rebuilt), the native
-   host prep and the native message-plane ingest (g++), all from the
-   sources in this checkout, built side by side; the kernel's registers,
-   stack frame and spill bytes are read from ptxas's report.
+2. Build: the CUDA verify kernel and the two RLC kernels (nvcc, sm_90a,
+   always rebuilt), the native host prep and the native message-plane
+   ingest (g++), all from the sources in this checkout, built side by
+   side; each kernel's registers, stack frame and spill bytes are read
+   from ptxas's report.
 3. Kernel vs plain: about 1,000 signed transfers plus the RFC 8032 TEST 1
    vector and eight tamper classes, tiled into batches of every bucket the
    main path launches (65,536, 8,192, 4,096, 1,024, 256 and 64 lanes), a
@@ -18,6 +19,23 @@ is printed):
    kernel's bitmask must equal the plain PyTorch version's bitmask,
    computed on the card, and the expected verdicts: 0 mismatches. Both are
    timed with CUDA events.
+3b. RLC kernels vs plain: at the same shapes, three batches each of
+   phase 3's valid lanes with ~2% of every class that stays out of the
+   equation (high S, bad lengths, padding, an R with an 8-torsion
+   component: code 0), then also of every rerouted class (a non-canonical
+   or x = 0 key, a key with an 8-torsion component: code 2), then also
+   one tampered lane. The lanes kernel's codes and the fold kernel's
+   eq_ok must equal the plain version's on the card and the expected ones
+   (eq_ok True without the tampered lane, False with it); the fold kernel
+   must equal the plain fold on the lanes kernel's own partial points;
+   the composed verdicts (the codes where eq_ok holds and no lane has code
+   2, else the verify kernel) must equal the verify kernel's bitmask and
+   the expected verdicts. Each kernel, the verify kernel on the same rows
+   and the plain version are timed with CUDA events.
+3c. The certificate (BASELINE config 4, n = 64): ``aggregate_verify`` on
+   the card on a clean certificate and on one with a tampered
+   attestation must equal the verify kernel's all-valid verdict, and
+   ``verify_certificate`` the verify kernel's verdicts; both timed.
 4. Main path, twice, 16 concurrent callers ``verify_many`` 70,000 items
    through ``make_verifier("cuda")`` after ``warmup()``:
    - stress: the node's default verifier table with the bucket ladder and
@@ -64,9 +82,15 @@ is printed):
    the ``/statusz`` build block, read before and after each run; a
    ``server run`` process holds one verifier), each build block
    names the card, and every server exits 0 on SIGTERM.
-7. One JSON line describing the kernel (its times and bound at every
-   shape, every main-path run, the ptxas figures and the threads per
-   signature), then the result line ``{"ok": true, "device": {...}}``.
+7. The node service on the RLC route: phase 6's net with ``[verifier]
+   mode = "rlc"`` (every other key at its default); run B sends 16
+   transfers a client. Phase 6's checks, and on each node over each run:
+   every batch went through RLC, the RLC kernels launched once a batch,
+   the verify kernel once a fallback, and a node that refused a twin fell
+   back at least once.
+8. One JSON line describing the kernels (their times and bound at every
+   shape, every main-path run, the ptxas figures), then the result line
+   ``{"ok": true, "device": {...}}``.
 
 Runs only on a CUDA device and only from a checkout of the repository.
 """
@@ -120,6 +144,15 @@ NODE_TAMPERED = 16
 # committed count reach its target: one small GET per node per period
 NODE_POLL_S = 0.025
 
+# phase 3b: lane classes that stay out of the RLC equation (code 0) and
+# that are rerouted to the exact check (code 2)
+RLC_OUT = ("high_s", "wrong_len", "padding", "r_torsion")
+RLC_REROUTE = ("noncanonical_y", "x0_sign", "a_torsion")
+# phase 3c: BASELINE config 4, a quorum certificate of n = 64 attestations
+CERT_N = 64
+# phase 7: run B's unary transfers a client
+NODE_RLC_PER_UNARY = 16
+
 RFC8032_TEST1 = (
     "9d61b19deffd5a60ba844af492ec2cc44449c5697b326919703bac031cae7f60",
     "d75a980182b10ab7d54bfed3c964073a0ee172f3daa62325af021a68f707511a",
@@ -171,37 +204,45 @@ def parse_ptxas(log_text: str, kernel: str) -> dict:
 
 
 def build_all() -> dict:
+    """Every library, built side by side; the ptxas figures of each kernel
+    by name."""
     from at2_node_tpu_torch.native import ingest, prep
     from at2_node_tpu_torch.native._build import BUILD_DIR
-    from at2_node_tpu_torch.ops import cuda_verify
+    from at2_node_tpu_torch.ops import cuda_rlc, cuda_verify
 
     # always build from the sources, so ptxas reports on what runs
-    lib = os.path.join(BUILD_DIR, cuda_verify.LIB_NAME)
-    if os.path.exists(lib):
-        os.remove(lib)
+    for mod in (cuda_verify, cuda_rlc):
+        lib = os.path.join(BUILD_DIR, mod.LIB_NAME)
+        if os.path.exists(lib):
+            os.remove(lib)
 
     def timed(fn):
         t0 = time.perf_counter()
         out = fn()
         return out, time.perf_counter() - t0
 
-    with ThreadPoolExecutor(max_workers=3) as pool:
+    with ThreadPoolExecutor(max_workers=4) as pool:
         kern = pool.submit(timed, cuda_verify.build)
+        rlc = pool.submit(timed, cuda_rlc.build)
         nat = pool.submit(timed, prep.native_available)
         ing = pool.submit(timed, ingest.ingest_available)
         _, kern_s = kern.result()
+        _, rlc_s = rlc.result()
         native_ok, nat_s = nat.result()
         ingest_ok, ing_s = ing.result()
-    log(f"build: kernel {kern_s:.1f} s (nvcc sm_90a), native prep {nat_s:.1f} s (g++), "
-        f"native ingest {ing_s:.1f} s (g++, libcrypto): "
+    log(f"build: verify kernel {kern_s:.1f} s, RLC kernels {rlc_s:.1f} s (nvcc sm_90a), native prep "
+        f"{nat_s:.1f} s (g++), native ingest {ing_s:.1f} s (g++, libcrypto): "
         f"{'on' if ingest_ok else 'OFF, the broadcast plane parses and tallies in python'}")
-    for line in cuda_verify.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            log("  ptxas:", line.strip())
-    ptxas = parse_ptxas(cuda_verify.build_log, "ed25519_verify_kernel")
-    ptxas["build_s"] = kern_s
-    log(f"kernel: {ptxas['registers']} registers, {ptxas['stack_bytes']} bytes stack frame, "
-        f"{ptxas['spill_bytes']} bytes spill stores")
+    ptxas = {}
+    for mod, names, build_s in ((cuda_verify, ("ed25519_verify_kernel",), kern_s),
+                                (cuda_rlc, ("ed25519_rlc_lanes", "ed25519_rlc_fold"), rlc_s)):
+        for line in mod.build_log.splitlines():
+            if "registers" in line or "spill" in line:
+                log("  ptxas:", line.strip())
+        for name in names:
+            ptxas[name] = {**parse_ptxas(mod.build_log, name), "build_s": build_s}
+            log(f"{name}: {ptxas[name]['registers']} registers, {ptxas[name]['stack_bytes']} bytes "
+                f"stack frame, {ptxas[name]['spill_bytes']} bytes spill stores")
     check(native_ok, "native host prep did not build with g++")
     log("prep path: native")
     return ptxas
@@ -210,13 +251,30 @@ def build_all() -> dict:
 # -- test material ---------------------------------------------------------
 
 
+def torsion_point():
+    """An extended point of order 8: [L]Q for a curve point Q off the
+    prime-order subgroup."""
+    from at2_node_tpu_torch.crypto import _fallback as fb
+    from at2_node_tpu_torch.ops.ed25519 import L
+
+    for y in range(2, 60):
+        try:
+            q = fb._pt_decompress(y.to_bytes(32, "little"))
+        except Exception:
+            continue  # y is not on the curve
+        t = fb._pt_mul(L, q)
+        if not fb._pt_equal(t, fb._IDENT):
+            return t
+    raise RuntimeError("chip_smoke: no torsion point found")
+
+
 class Material:
     """Signed transfers (64 seeded keys x 16 sequences), the RFC 8032
     TEST 1 vector, and a pool of lanes for every tamper class."""
 
     def __init__(self, seed: int) -> None:
         from at2_node_tpu_torch.crypto import _fallback as fb
-        from at2_node_tpu_torch.crypto.keys import SignKeyPair
+        from at2_node_tpu_torch.crypto.keys import SignKeyPair, verify_one
         from at2_node_tpu_torch.ops.ed25519 import L
         from at2_node_tpu_torch.types import transfer_signing_bytes
 
@@ -266,6 +324,48 @@ class Material:
                 (pk[:31], msg, sig) if j % 2 else (pk, msg, sig[:63])
             )
             self.tampered["padding"].append((pk, msg, sig))  # valid byte zeroed later
+
+        # 8-torsion lanes: R = [r]B + T with S = r + h a (the RLC route's
+        # code 0; always rejected), and a key A' = [a]B + T (code 2: its
+        # verdict depends on h mod 8), each with its expected verdict
+        t = torsion_point()
+        self.torsion: dict = {"r_torsion": [], "a_torsion": []}
+        for j in range(2 * n_pool):
+            in_key = j % 2 == 1
+            a, r = (int.from_bytes(rng.bytes(32), "little") % L for _ in range(2))
+            big_a, big_r = fb._pt_mul(a, fb._BASE), fb._pt_mul(r, fb._BASE)
+            if in_key:
+                big_a = fb._pt_add(big_a, t)
+            else:
+                big_r = fb._pt_add(big_r, t)
+            a_enc, r_enc, msg = fb._pt_compress(big_a), fb._pt_compress(big_r), b"torsion %d" % j
+            s = (r + fb._sha512_int(r_enc, a_enc, msg) % L * a) % L
+            item = (a_enc, msg, r_enc + s.to_bytes(32, "little"))
+            self.torsion["a_torsion" if in_key else "r_torsion"].append((item, verify_one(*item)))
+
+    def rlc_batch(self, n: int, rng, reroute: bool, tamper: bool):
+        """n lanes for the RLC kernels: ~2% of every class of RLC_OUT and,
+        with ``reroute``, of RLC_REROUTE; with ``tamper`` one lane whose
+        message changed (code 1: in the equation, invalid); the rest valid,
+        the control among them; shuffled. Returns (items, expected codes,
+        expected verdicts, padding mask)."""
+        per_class = max(1, round(TAMPER_SHARE * n))
+        lanes = []  # (item, code, verdict, padding)
+        for c in RLC_OUT + (RLC_REROUTE if reroute else ()):
+            for j in range(per_class):
+                if c in self.torsion:
+                    item, ok = self.torsion[c][j % len(self.torsion[c])]
+                else:
+                    item, ok = self.tampered[c][j % len(self.tampered[c])], False
+                lanes.append((item, 2 if c in RLC_REROUTE else 0, ok, c == "padding"))
+        if tamper:
+            lanes.append((self.tampered["msg_flip"][0], 1, False, False))
+        lanes.append((self.control, 1, True, False))
+        for j in range(n - len(lanes)):
+            lanes.append((self.valid[j % len(self.valid)], 1, True, False))
+        lanes = [lanes[i] for i in rng.permutation(n)]
+        return ([x[0] for x in lanes], np.array([x[1] for x in lanes], dtype=np.uint8),
+                np.array([x[2] for x in lanes]), np.array([x[3] for x in lanes]))
 
     def cross_check(self) -> None:
         """The single-signature verifier agrees with the expected verdict
@@ -361,6 +461,201 @@ def kernel_vs_plain(torch, mat: Material, rng) -> dict:
             f"({n / (ms / 1e3):,.0f} sigs/s), plain {plain_ms:.1f} ms, bound {bms:.3f} ms ({by})")
     check(mismatches == 0, f"kernel, plain version and expected verdicts differ on {mismatches} lanes")
     return {"by_lanes": rows_by_lanes, "mismatches": mismatches, "max_abs_err": max_abs_err}
+
+
+# -- phase 3b --------------------------------------------------------------
+
+
+def rlc_bounds(n: int, blocks: int) -> dict:
+    """The least time of each RLC kernel on these n lanes: the larger of
+    its bytes over the memory rate and its multiply-add slots over the
+    issue rate. The lanes kernel reads each row and the constants and
+    writes a code a lane and a point a block, and does every lane's
+    operations and the n - blocks additions of its block trees; the fold
+    reads the blocks' points and does blocks - 1 additions."""
+    from at2_node_tpu_torch.ops import cuda_rlc, cuda_verify
+
+    point = 4 * 40
+    out = {}
+    for name, ops, nbytes in (
+        ("ed25519_rlc_lanes",
+         n * cuda_rlc.INT32_MULADD_SLOTS_PER_LANE + (n - blocks) * cuda_rlc.INT32_MULADD_SLOTS_PER_FOLD_ADD,
+         n * 161 + n + blocks * point + 4 * len(cuda_verify.lane_consts())),
+        ("ed25519_rlc_fold", (blocks - 1) * cuda_rlc.INT32_MULADD_SLOTS_PER_FOLD_ADD,
+         blocks * point + 1 + 40),
+    ):
+        ops_s, bytes_s = ops / H100_INT32_MULADD_PER_S, nbytes / H100_BYTES_PER_S
+        out[name] = (1e3 * max(ops_s, bytes_s), "operations" if ops_s >= bytes_s else "bytes")
+    return out
+
+
+def rlc_vs_plain(torch, mat: Material, rng) -> dict:
+    """Phase 3b. Each kernel is also launched apart, straight through the
+    library, to compare the fold with the plain fold of the lanes kernel's
+    own partial points and to time each; ``rlc_packed`` runs both."""
+    from at2_node_tpu_torch.ops import aggregate as agg
+    from at2_node_tpu_torch.ops import cuda_rlc, cuda_verify
+    from at2_node_tpu_torch.ops import ed25519 as v
+    from at2_node_tpu_torch.ops import edwards as ed
+    from at2_node_tpu_torch.ops import field as fe
+
+    lib = cuda_rlc.build()
+    consts = torch.as_tensor(cuda_verify.lane_consts()).cuda()
+    per_block = lib.ed25519_rlc_lanes_per_block()
+    by_lanes: dict = {"ed25519_rlc_lanes": {}, "ed25519_rlc_fold": {}}
+    mism = Counter()
+    max_err = {"ed25519_rlc_lanes": 0, "ed25519_rlc_fold": 0}
+    for n in KERNEL_LANES:
+        blocks = -(-n // per_block)
+        for kind, reroute, tamper in (("clean", False, False), ("rerouted", True, False),
+                                      ("tampered", True, True)):
+            items, want_codes, want_ok, pad = mat.rlc_batch(n, rng, reroute, tamper)
+            cols = [list(x) for x in zip(*items)]
+            rows = agg.rlc_prep(*cols, n).numpy()
+            rows[pad, 160] = 0  # padding lanes: a valid row with its valid byte cleared
+            k1_rows = np.empty((n, v.PACKED_WIDTH), dtype=np.uint8)
+            v.fill_packed(*cols, k1_rows)
+            k1_rows[pad, 128] = 0
+            dev, k1_dev = torch.from_numpy(rows).cuda(), torch.from_numpy(k1_rows).cuda()
+
+            eq, codes = cuda_rlc.rlc_packed(dev)
+            bits = cuda_verify.verify_packed(k1_dev)
+            # the kernels apart: codes and partial points, then the fold
+            out = torch.empty((n + 1,), dtype=torch.uint8, device="cuda")
+            partials = torch.empty((blocks, 4, 10), dtype=torch.int32, device="cuda")
+            stream = torch.cuda.current_stream().cuda_stream
+
+            def lanes_launch():
+                check(lib.ed25519_rlc_lanes_launch(dev.data_ptr(), n, consts.data_ptr(), out.data_ptr(),
+                                                   partials.data_ptr(), stream) == 0, "lanes launch")
+
+            def fold_launch():
+                check(lib.ed25519_rlc_fold_launch(partials.data_ptr(), blocks, consts.data_ptr(),
+                                                  out[n:].data_ptr(), stream) == 0, "fold launch")
+
+            lanes_launch()
+            fold_launch()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            p_eq, p_codes = agg.rlc_graph_packed_plain(dev)
+            end.record()
+            fold_plain = agg.is_identity(agg.tree_reduce_points(partials.to(torch.int64)))
+            torch.cuda.synchronize()
+            plain_ms = start.elapsed_time(end)
+            eq, codes = bool(eq.item()), codes.cpu().numpy()
+            p_eq, p_codes = bool(p_eq.item()), p_codes.cpu().numpy()
+            apart = out.cpu().numpy()
+            k1 = np.unpackbits(bits.cpu().numpy(), count=n).astype(bool)
+            composed = (codes == 1) if eq and not (codes == 2).any() else k1
+            bad = {
+                "lanes": int((codes != p_codes).sum() + (codes != want_codes).sum()
+                             + (apart[:n] != codes).sum()),
+                "fold": int(eq != p_eq) + int(eq != (not tamper)) + int(bool(apart[n]) != eq)
+                + int(bool(fold_plain.item()) != eq),
+                "composed": int((composed != k1).sum() + (k1 != want_ok).sum()),
+            }
+            mism.update(bad)
+            max_err["ed25519_rlc_lanes"] = max(max_err["ed25519_rlc_lanes"],
+                                               int(np.abs(codes.astype(int) - p_codes.astype(int)).max()))
+            max_err["ed25519_rlc_fold"] = max(max_err["ed25519_rlc_fold"], abs(int(eq) - int(p_eq)))
+            log(f"rlc vs plain {n:6d} lanes ({kind}): eq_ok {eq}, codes 0/1/2 "
+                f"{[int((codes == c).sum()) for c in range(3)]}, {sum(bad.values())} mismatches "
+                f"{dict(bad)}, plain {plain_ms:.1f} ms")
+            if kind != "clean":
+                continue
+            # the fold on points that do not all vanish: the lanes kernel's
+            # partials of a batch are mostly the identity, so here the blocks'
+            # points are random multiples of B and, last, their negated sum
+            # (eq_ok True) or their sum (False)
+            k = rng.integers(1, 16, size=blocks - 1)
+            (sx, sy), p, m = (0, 1), ed.point_to_ints(ed.BASE), int(k.sum())
+            while m:  # [sum k]B, double and add
+                if m & 1:
+                    sx, sy = ed.affine_add_ints((sx, sy), p)
+                p, m = ed.affine_add_ints(p, p), m >> 1
+            for sign, want in ((-1, True), (1, False)):
+                pts = np.stack([ed.BASE_TABLE[int(j)] for j in k] + [ed.point_from_ints(sign * sx % fe.P, sy)])
+                partials.copy_(torch.as_tensor(pts, dtype=torch.int32))
+                fold_launch()
+                fold_plain = agg.is_identity(agg.tree_reduce_points(partials.to(torch.int64)))
+                got = bool(out[n].item())
+                bad_fold = int(got != want) + int(bool(fold_plain.item()) != want)
+                mism.update({"fold": bad_fold})
+                max_err["ed25519_rlc_fold"] = max(max_err["ed25519_rlc_fold"], int(got != bool(fold_plain.item())))
+            reps = max(3, min(30, 60_000 // n))
+            lanes_ms = cuda_ms(torch, lanes_launch, reps)
+            fold_ms = cuda_ms(torch, fold_launch, reps)
+            k1_ms = cuda_ms(torch, lambda: cuda_verify.verify_packed(k1_dev), reps)
+            fold_plain_ms = cuda_ms(
+                torch, lambda: agg.is_identity(agg.tree_reduce_points(partials.to(torch.int64))), 1)
+            bounds = rlc_bounds(n, blocks)
+            for name, ms, pms in (("ed25519_rlc_lanes", lanes_ms, plain_ms),
+                                  ("ed25519_rlc_fold", fold_ms, fold_plain_ms)):
+                bms, by = bounds[name]
+                by_lanes[name][n] = {"ms": ms, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
+                                     "verify_kernel_ms": k1_ms}
+            log(f"rlc kernels {n:6d} lanes: lanes {lanes_ms:.3f} ms (bound "
+                f"{bounds['ed25519_rlc_lanes'][0]:.3f}, {bounds['ed25519_rlc_lanes'][1]}) + fold "
+                f"{fold_ms:.3f} ms ({blocks} partials) = {lanes_ms + fold_ms:.3f} ms against the verify "
+                f"kernel's {k1_ms:.3f} ms on the same rows: RLC/per-sig {(lanes_ms + fold_ms) / k1_ms:.2f}x")
+    check(sum(mism.values()) == 0, f"RLC kernels, plain version, verify kernel and expected results "
+          f"differ: {dict(mism)}")
+    # the lanes kernel answers for the codes and the composed verdicts, the
+    # fold for eq_ok
+    return {"by_lanes": by_lanes, "max_abs_err": max_err,
+            "mismatches": {"ed25519_rlc_lanes": mism["lanes"] + mism["composed"],
+                           "ed25519_rlc_fold": mism["fold"]}}
+
+
+# -- phase 3c --------------------------------------------------------------
+
+
+def certificate(torch, mat: Material, rng, by_lanes: dict) -> dict:
+    """Phase 3c: ``aggregate_verify`` and ``verify_certificate`` on the card
+    at n = 64, against the verify kernel; host-clock times of whole calls
+    (prep, both RLC kernels and the copy back) beside the verify kernel's
+    ``verify_batch``. The RLC kernels' launch counts are set to 0 just
+    before and read just after."""
+    from at2_node_tpu_torch.ops import aggregate as agg
+    from at2_node_tpu_torch.ops import cuda_rlc
+    from at2_node_tpu_torch.ops import ed25519 as v
+
+    cert = mat.valid[:CERT_N]  # sequence 1 of each of 64 keys: 64 distinct replicas
+    j = int(rng.integers(0, CERT_N))
+    pk, msg, sig = cert[j]
+    bad = cert[:j] + [(pk, msg, sig[:40] + bytes([sig[40] ^ 2]) + sig[41:])] + cert[j + 1:]
+    cuda_rlc.launches = cuda_rlc.fold_launches = 0
+    for name, items in (("clean", cert), ("tampered", bad)):
+        cols = [list(x) for x in zip(*items)]
+        one = agg.aggregate_verify(*cols)
+        per_sig = v.verify_batch(*cols)
+        check(one == bool(per_sig.all()) == (name == "clean"),
+              f"certificate ({name}): aggregate_verify {one}, verify kernel {per_sig.all()}")
+        check(agg.verify_certificate(*cols).tolist() == per_sig.tolist(),
+              f"certificate ({name}): verify_certificate differs from the verify kernel")
+    launches = (cuda_rlc.launches, cuda_rlc.fold_launches)
+    check(launches == (2, 2), f"certificate: RLC kernel launches {launches}, expected (2, 2)")
+    cols = [list(x) for x in zip(*cert)]
+
+    def host_ms(fn, reps=20):
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            times.append(1e3 * (time.perf_counter() - t0))
+        return float(np.median(times))
+
+    agg_ms = host_ms(lambda: agg.aggregate_verify(*cols))
+    per_sig_ms = host_ms(lambda: v.verify_batch(*cols))
+    device_ms = (by_lanes["ed25519_rlc_lanes"][64]["ms"] + by_lanes["ed25519_rlc_fold"][64]["ms"])
+    k1_ms = by_lanes["ed25519_rlc_lanes"][64]["verify_kernel_ms"]
+    log(f"certificate n={CERT_N}: aggregate_verify agrees with the verify kernel (clean True, tampered "
+        f"False); whole call {agg_ms:.3f} ms median against verify_batch's {per_sig_ms:.3f} ms; on the "
+        f"card the RLC kernels take {device_ms:.3f} ms against the verify kernel's {k1_ms:.3f} ms at 64 lanes")
+    return {"n": CERT_N, "launches": {"ed25519_rlc_lanes": launches[0], "ed25519_rlc_fold": launches[1]},
+            "aggregate_verify_ms": agg_ms, "verify_batch_ms": per_sig_ms,
+            "rlc_device_ms": device_ms, "verify_kernel_ms": k1_ms}
 
 
 # -- phase 4 ---------------------------------------------------------------
@@ -880,8 +1175,9 @@ class ServerNet:
     cpu`` for the host kind), every other node's ``config get-node``
     fragment appended."""
 
-    def __init__(self, kind: str, workdir: str, n: int = NET_NODES) -> None:
+    def __init__(self, kind: str, workdir: str, n: int = NET_NODES, mode: str = "auto") -> None:
         self.kind = kind
+        self.mode = mode
         self.workdir = workdir
         self.n = n
         self.procs: list = []
@@ -913,6 +1209,8 @@ class ServerNet:
         table = f'[verifier]\nkind = "{self.kind}"\nbatch_size = 256\nmax_delay = 0.002\nmode = "auto"\n'
         check(all(c.count(table) == 1 for c in configs),
               f"config new wrote no node default [verifier] table of kind {self.kind!r}")
+        # the operator's one edit for another verifier mode
+        configs = [c.replace(table, table.replace('"auto"', f'"{self.mode}"')) for c in configs]
         fragments = self._cli([server_argv("config", "get-node")] * self.n, configs)
         for i in range(self.n):
             toml = configs[i] + "\n" + "\n".join(f for j, f in enumerate(fragments) if j != i)
@@ -1132,35 +1430,39 @@ async def node_run(net: ServerNet, label: str, clients: list, transfers: list, b
 
 async def node_path(seed: int, by_lanes, card, kind: str = "cuda", n_clients: int = NET_CLIENTS,
                     per_batched: int = NET_PER_CLIENT_BATCHED, per_unary: int = NET_PER_CLIENT_PER_TX,
-                    n_tampered: int = NODE_TAMPERED, deadline_s: float = NET_DEADLINE_S) -> dict:
-    """Phase 6: four ``server run`` processes with ``[verifier] kind``; run A
-    through ``send_asset_many``, run B through unary ``send_asset`` with
-    tampered twins; then the ledgers, refusals, metrics and shutdown are
-    checked. ``by_lanes`` (phase 3's kernel times) and ``card`` (the name
-    the build block must carry) are None off the card."""
+                    n_tampered: int = NODE_TAMPERED, deadline_s: float = NET_DEADLINE_S,
+                    mode: str = "auto") -> dict:
+    """Phase 6 (and, with ``mode="rlc"``, phase 7): four ``server run``
+    processes with ``[verifier] kind`` and ``mode``; run A through
+    ``send_asset_many``, run B through unary ``send_asset`` with tampered
+    twins; then the ledgers, refusals, metrics and shutdown are checked.
+    ``by_lanes`` (phase 3's and 3b's kernel times by kernel name) and
+    ``card`` (the name the build block must carry) are None off the card."""
     import tempfile
 
     from at2_node_tpu_torch.client import Client
 
-    rng = np.random.default_rng(seed + 6)
+    rng = np.random.default_rng(seed + (6 if mode == "auto" else 7))
     clients, run_a, run_b, twins = node_traffic(rng, n_clients, per_batched, per_unary, n_tampered)
+    prefix = "" if mode == "auto" else f"{mode} "
     with tempfile.TemporaryDirectory(prefix="at2-phase6-") as workdir:
-        net = ServerNet(kind, workdir)
+        net = ServerNet(kind, workdir, mode=mode)
         t0 = time.perf_counter()
         try:
             net.start(deadline_s=180.0)
-            log(f"node net: {net.n} `server run` processes, [verifier] kind = \"{kind}\", "
-                f"up and meshed in {time.perf_counter() - t0:.1f} s")
+            log(f"{prefix}node net: {net.n} `server run` processes, [verifier] kind = \"{kind}\", "
+                f"mode = \"{mode}\", up and meshed in {time.perf_counter() - t0:.1f} s")
             runs = {}
             refused_total = Counter()
             for name, label, transfers, batched, want in (
                 ("node_grpc_batched", "node net (SendAssetBatch)", run_a, True, per_batched),
                 ("node_grpc_unary", "node net (unary SendAsset)", run_b, False, per_batched + per_unary),
             ):
-                run = await node_run(net, label, clients, transfers, batched,
+                run = await node_run(net, prefix + label, clients, transfers, batched,
                                      {} if batched else twins, want, deadline_s)
                 refused_total.update(run["refused"])
-                runs[name] = node_checks(net, run, by_lanes, card, kind, refused_total)
+                runs[prefix.replace(" ", "_") + name] = node_checks(
+                    net, run, by_lanes, card, kind, refused_total, mode)
             check(sum(refused_total.values()) == len(twins),
                   f"{sum(refused_total.values())} of {len(twins)} tampered transfers refused")
             # the ledgers: every valid transfer committed on every node
@@ -1174,12 +1476,12 @@ async def node_path(seed: int, by_lanes, card, kind: str = "cuda", n_clients: in
                         check([seq, bal] == replay[kp.public.hex()],
                               f"node {i}: {kp.public.hex()[:12]} has sequence {seq}, balance {bal}; "
                               f"the replay says {replay[kp.public.hex()]}")
-            log(f"node net: {len(clients)} accounts equal the python-int replay on all {net.n} nodes; "
-                f"{sum(refused_total.values())} tampered transfers refused with INVALID_ARGUMENT")
+            log(f"{prefix}node net: {len(clients)} accounts equal the python-int replay on all {net.n} "
+                f"nodes; {sum(refused_total.values())} tampered transfers refused with INVALID_ARGUMENT")
         finally:
             rcs = net.stop()
         check(rcs == [0] * net.n, f"servers exited with {rcs} on SIGTERM")
-        log("node net: every server exited 0 on SIGTERM")
+        log(f"{prefix}node net: every server exited 0 on SIGTERM")
     return runs
 
 
@@ -1190,12 +1492,15 @@ def _lanes(st: dict) -> float:
     return st["verifier_signatures"] / occ if occ else 0.0
 
 
-def node_checks(net: ServerNet, run: dict, by_lanes, card, kind: str, refused: Counter) -> dict:
+def node_checks(net: ServerNet, run: dict, by_lanes, card, kind: str, refused: Counter,
+                mode: str = "auto") -> dict:
     """After a run: each node's /metrics (audit_divergence 0,
     rejected_at_ingress equal to the tampered transfers refused there so
-    far), verifier counters and the card in its /statusz build block."""
+    far), verifier counters, the kernels' launch counts and the card in its
+    /statusz build block. In mode "rlc" every batch goes through the RLC
+    kernels, and the verify kernel runs once a fallback."""
     label = run["label"]
-    per_node, launches = [], 0
+    per_node, launches, rlc_launches = [], 0, 0
     for i in range(net.n):
         status, status0 = net.statusz(i), run["before"][i]
         st, st0 = status["stats"], status0["stats"]
@@ -1207,40 +1512,62 @@ def node_checks(net: ServerNet, run: dict, by_lanes, card, kind: str, refused: C
         check(sigs > 0, f"{label} node {i}: the verifier checked no signature")
         # the CPU kind (a rehearsal off the card) has no batches
         batches = st.get("verifier_batches", 0) - st0.get("verifier_batches", 0)
-        node_launches = 0
+        node_launches = node_rlc = fallbacks = 0
         if kind == "cuda":
             check(batches > 0, f"{label} node {i}: the verifier dispatched no batch")
             check(status["build"].get("device") == card,
                   f"node {i}'s build block names {status['build'].get('device')!r}, not {card!r}")
-            # the process-wide count: a `server run` process holds one verifier
-            node_launches = status["build"]["kernel_launches"] - status0["build"]["kernel_launches"]
-            check(node_launches == batches, f"{label} node {i}: {batches} batches, {node_launches} launches")
+            # the process-wide counts: a `server run` process holds one verifier
+            b, b0 = status["build"], status0["build"]
+            node_launches = b["kernel_launches"] - b0["kernel_launches"]
+            node_rlc = b["rlc_kernel_launches"] - b0["rlc_kernel_launches"]
+            node_fold = b["rlc_fold_launches"] - b0["rlc_fold_launches"]
+            rlc_batches = st["verifier_rlc_batches"] - st0["verifier_rlc_batches"]
+            fallbacks = st["verifier_rlc_fallbacks"] - st0["verifier_rlc_fallbacks"]
+            if mode == "rlc":
+                check(rlc_batches == batches, f"{label} node {i}: {batches} batches, {rlc_batches} RLC")
+                check(node_rlc == node_fold == rlc_batches,
+                      f"{label} node {i}: {rlc_batches} RLC batches, RLC kernel launches "
+                      f"{node_rlc} and {node_fold}")
+                check(node_launches == fallbacks,
+                      f"{label} node {i}: {fallbacks} fallbacks, {node_launches} verify kernel launches")
+                check(fallbacks >= 1 or not run["refused"][i],
+                      f"{label} node {i} refused a twin without an exact pass")
+            else:
+                check(node_launches == batches, f"{label} node {i}: {batches} batches, {node_launches} launches")
+                check(node_rlc == node_fold == rlc_batches == 0, f"{label} node {i}: RLC ran in mode {mode}")
         launches += node_launches
+        rlc_launches += node_rlc
         per_node.append({
             "signatures": sigs, "batches": batches, "launches": node_launches,
             # this run's: signatures over the lanes its batches launched
             "batch_occupancy": sigs / (_lanes(st) - _lanes(st0)) if batches else 0.0,
             "rejected_at_ingress": int(m["at2_rejected_at_ingress_total"]),
-            "kernel_busy_share": (node_launches * by_lanes[256]["ms"] / (1e3 * run["wall_s"])
-                                  if by_lanes else None),
+            "rlc_launches": node_rlc, "rlc_fallbacks": fallbacks,
+            "kernel_busy_share": ((node_launches * by_lanes["ed25519_verify"][256]["ms"]
+                                   + node_rlc * (by_lanes["ed25519_rlc_lanes"][256]["ms"]
+                                                 + by_lanes["ed25519_rlc_fold"][256]["ms"]))
+                                  / (1e3 * run["wall_s"]) if by_lanes else None),
             "stage_histograms": status["verifier_stages"],
         })
     if kind == "cuda":
-        check(launches > 0, f"{label}: ran without launching the kernel")
+        check((rlc_launches if mode == "rlc" else launches) > 0, f"{label}: ran without launching a kernel")
     log(f"{label}: {run['transfers']} transfers from {run['clients']} clients "
         f"committed on all {net.n} nodes in {run['wall_s']:.3f} s = {run['tx_per_s']:,.0f} tx/s "
         f"(first submission to last commit); client signing {run['sign_s']:.3f} s measured apart, "
-        f"submission {run['submit_s']:.3f} s; {launches} kernel launches")
+        f"submission {run['submit_s']:.3f} s; {launches} verify kernel launches, {rlc_launches} RLC "
+        f"kernel launches")
     for i, p in enumerate(per_node):
         busy = p["kernel_busy_share"]
         log(f"{label} node {i}: {p['signatures']} signatures verified, {p['batches']} batches, "
+            f"{p['rlc_launches']} through RLC, {p['rlc_fallbacks']} fallbacks, "
             f"occupancy {p['batch_occupancy']:.3f}, rejected_at_ingress {p['rejected_at_ingress']}"
             + (f", kernel busy {100 * busy:.1f}% of the wall time (phase 3 times)" if busy is not None else ""))
         log(f"{label} node {i} stage histograms since the node started:",
             json.dumps(p.pop("stage_histograms"), sort_keys=True))
-    return {"launches": launches, "tx_per_s": run["tx_per_s"], "wall_s": run["wall_s"],
-            "transfers": run["transfers"], "sign_s": run["sign_s"], "submit_s": run["submit_s"],
-            "nodes": per_node}
+    return {"launches": launches, "rlc_launches": rlc_launches, "tx_per_s": run["tx_per_s"],
+            "wall_s": run["wall_s"], "transfers": run["transfers"], "sign_s": run["sign_s"],
+            "submit_s": run["submit_s"], "nodes": per_node}
 
 
 def device_share(run: dict, by_lanes: dict) -> float:
@@ -1266,9 +1593,19 @@ def main() -> None:
     log(f"material: {len(mat.valid)} valid items, {len(TAMPER_CLASSES)} tamper classes, "
         f"signed in {time.perf_counter() - t0:.1f} s")
     kp = kernel_vs_plain(torch, mat, rng)
+    rlc = rlc_vs_plain(torch, mat, rng)
+    times = {"ed25519_verify": kp["by_lanes"], **rlc["by_lanes"]}
+    cert = certificate(torch, mat, rng, rlc["by_lanes"])
     mp = asyncio.run(main_path(mat, rng))
     net = asyncio.run(net_path(args.seed, kp["by_lanes"]))
-    nodes = asyncio.run(node_path(args.seed, kp["by_lanes"], torch.cuda.get_device_name(0)))
+    device_name = torch.cuda.get_device_name(0)
+    nodes = asyncio.run(node_path(args.seed, times, device_name))
+    rlc_nodes = asyncio.run(node_path(args.seed, times, device_name, mode="rlc",
+                                      per_unary=NODE_RLC_PER_UNARY))
+    log(f"rlc node net (SendAssetBatch): {rlc_nodes['rlc_node_grpc_batched']['tx_per_s']:,.0f} tx/s "
+        f"against {nodes['node_grpc_batched']['tx_per_s']:,.0f} tx/s for phase 6's run A (mode "
+        f"\"auto\", the verify kernel) in this call")
+
     from at2_node_tpu_torch.ops import cuda_verify
 
     runs = {}
@@ -1284,7 +1621,7 @@ def main() -> None:
     runs.update(net)
     runs.update(nodes)
     top = kp["by_lanes"][65536]
-    kernels = {"kernels": [{
+    kernels = [{
         "name": "ed25519_verify",
         "route": "cuda",
         "source": "at2_node_tpu_torch/csrc/ed25519_verify.cu",
@@ -1299,12 +1636,38 @@ def main() -> None:
         "bound_by": top["bound_by"],
         "library_ms": None,
         "threads_per_signature": cuda_verify.THREADS_PER_SIGNATURE,
-        **ptxas,
+        **ptxas["ed25519_verify_kernel"],
         "by_lanes": {str(n): r for n, r in kp["by_lanes"].items()},
         "main_path": runs,
         "card": card,
-    }]}
-    print(json.dumps(kernels))
+    }]
+    # the RLC kernels' main path: phase 7's node net (the processes' counts)
+    rlc_launches = sum(r["rlc_launches"] for r in rlc_nodes.values())
+    check(rlc_launches > 0, "phase 7 ran without launching the RLC kernels")
+    for name, replaces in (("ed25519_rlc_lanes", "at2_node_tpu/ops/aggregate.py:287"),
+                           ("ed25519_rlc_fold", "at2_node_tpu/ops/aggregate.py:325")):
+        top = rlc["by_lanes"][name][65536]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "at2_node_tpu_torch/csrc/ed25519_rlc.cu",
+            "replaces": replaces,
+            "launches": rlc_launches,
+            "mismatches": rlc["mismatches"][name],
+            "max_abs_err": rlc["max_abs_err"][name],
+            "lanes": 65536,
+            "ms": top["ms"],
+            "plain_ms": top["plain_ms"],
+            "bound_ms": top["bound_ms"],
+            "bound_by": top["bound_by"],
+            "library_ms": None,
+            "threads_per_lane": cuda_verify.THREADS_PER_SIGNATURE,
+            **ptxas[name],
+            "by_lanes": {str(n): r for n, r in rlc["by_lanes"][name].items()},
+            "main_path": {**rlc_nodes, "certificate": cert},
+            "card": card,
+        })
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -21,7 +21,8 @@ from at2_node_tpu.ops import ed25519 as ref_v
 from at2_node_tpu_torch.crypto import _fallback as fb
 from at2_node_tpu_torch.crypto.keys import SignKeyPair
 from at2_node_tpu_torch.native._build import compile_lib
-from at2_node_tpu_torch.ops import cuda_verify
+from at2_node_tpu_torch.ops import aggregate as agg
+from at2_node_tpu_torch.ops import cuda_rlc, cuda_verify
 from at2_node_tpu_torch.ops import ed25519 as v
 from at2_node_tpu_torch.ops import edwards as ed
 from at2_node_tpu_torch.ops import field as fe
@@ -65,6 +66,10 @@ def _lane_lib():
     lib.ed25519_lane_take_counts.restype = None
     lib.ed25519_lane_recode.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]
     lib.ed25519_lane_recode.restype = None
+    lib.ed25519_lane_rlc_rows.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ]
+    lib.ed25519_lane_rlc_rows.restype = None
     return lib
 
 
@@ -281,3 +286,102 @@ def test_lane_consts_layout():
         x, y = big_x * zinv % fe.P, big_y * zinv % fe.P
         comps = [fe.limbs_to_int(table[e, :, k]) for k in range(4)]
         assert comps == [(y - x) % fe.P, (y + x) % fe.P, 2, 2 * fe.D_INT * x * y % fe.P]
+
+
+# -- the RLC lane (csrc/ed25519_lane.cuh quad_rlc) --------------------------
+
+
+def _torsion_point():
+    """An extended point of order 8: [L]Q for a curve point Q off the
+    subgroup."""
+    for y in range(2, 60):
+        try:
+            q = fb._pt_decompress(y.to_bytes(32, "little"))
+        except Exception:
+            continue
+        t = fb._pt_mul(v.L, q)
+        if not fb._pt_equal(t, fb._IDENT):
+            return t
+    raise AssertionError("no torsion point found")
+
+
+def _rlc_lanes():
+    """ITEMS' first 16 lanes (every tamper kind, the crafted encodings of A
+    among them) and four torsion lanes: R = [r]B + T with S = r + h a (code
+    0), and A' = [a]B + T (code 2), two of each."""
+    items = list(ITEMS[:16])
+    t = _torsion_point()
+    for i in range(4):
+        a, r = (int.from_bytes(RNG.bytes(32), "little") % v.L for _ in range(2))
+        big_a, big_r = fb._pt_mul(a, fb._BASE), fb._pt_mul(r, fb._BASE)
+        if i % 2:
+            big_a = fb._pt_add(big_a, t)
+        else:
+            big_r = fb._pt_add(big_r, t)
+        a_enc, r_enc, msg = fb._pt_compress(big_a), fb._pt_compress(big_r), b"torsion %d" % i
+        s = (r + fb._sha512_int(r_enc, a_enc, msg) % v.L * a) % v.L
+        items.append((a_enc, msg, r_enc + s.to_bytes(32, "little")))
+    return items
+
+
+def _rlc_rows(items, bucket):
+    z = [int.from_bytes(RNG.bytes(16), "little") | 1 for _ in range(bucket)]
+    return agg.rlc_prep(*[list(x) for x in zip(*items)], bucket, _z_override=z).numpy().copy()
+
+
+def _host_rlc(lib, rows):
+    codes = np.zeros(len(rows), dtype=np.uint8)
+    residuals = np.zeros((len(rows), 4, fe.N_LIMBS), dtype=np.int32)
+    consts = cuda_verify.lane_consts()  # held: ctypes takes only its address
+    lib.ed25519_lane_rlc_rows(rows.ctypes.data, len(rows), consts.ctypes.data,
+                              codes.ctypes.data, residuals.ctypes.data)
+    return codes, residuals
+
+
+def test_rlc_lane_codes_and_residuals_match_plain_version(lane_lib):
+    """The host quad's RLC lane gives the plain version's codes on 20 lanes
+    of every tamper kind and both torsion kinds, two padding lanes among
+    them, and its residual [z]R + [zh]A - [zs]B (unmasked) equals the plain
+    rlc_residuals after canonical reduction on every lane."""
+    rows = _rlc_rows(_rlc_lanes(), 22)
+    codes, residuals = _host_rlc(lane_lib, rows)
+    t = torch.from_numpy(rows)
+    _, plain_codes = agg.rlc_graph_packed_plain(t)
+    assert codes.tolist() == plain_codes.tolist()
+    assert codes[16:20].tolist() == [0, 2, 0, 2] and codes[20:].tolist() == [0, 0]
+    assert sorted(set(codes.tolist())) == [0, 1, 2]
+    a_point, _ = ed.decompress(t[:, :32])
+    r_point, _ = ed.decompress(t[:, 32:64])
+    w = [v.windows_msb_first(t[:, o:o + 32]) for o in (64, 96, 128)]
+    plain = agg.rlc_residuals(r_point, a_point, *w).numpy()
+    assert [ed.point_to_ints(x) for x in residuals] == [ed.point_to_ints(x) for x in plain]
+    # a valid signature's residual is the identity, a tampered one's is not
+    ok = np.unpackbits(v.verify_packed(torch.from_numpy(_rows(ITEMS[:16]))).numpy(), count=16)
+    for i in range(16):
+        assert (ed.point_to_ints(residuals[i]) == (0, 1)) == bool(ok[i]) or codes[i] != 1
+
+
+def test_rlc_operation_counts_follow_the_kernel(lane_lib):
+    """The field multiplications, squarings and products one RLC lane uses
+    in the kernel, as the g++ build counts them, are the constants the
+    bound charges."""
+    rows = _rlc_rows(ITEMS[:1], 1)
+    _take_counts(lane_lib)
+    _host_rlc(lane_lib, rows)
+    muls, squares, products = _take_counts(lane_lib)
+    assert muls == cuda_rlc.FIELD_MULS_PER_LANE == 8534
+    assert squares == cuda_rlc.FIELD_SQUARES_PER_LANE == 3582
+    assert 2 * products == cuda_rlc.INT32_MULADD_SLOTS_PER_LANE
+
+
+def test_l_digits_and_the_torsion_check(lane_lib):
+    """[L] of the kernel's Horner: a lane whose R is a pure 8-torsion point
+    (order 8, so [L]R = [5]R is not the identity) gets code 0, and one whose
+    R is the identity encoding (torsion-free) does not."""
+    t = _torsion_point()
+    base = ITEMS[0]
+    r_torsion = fb._pt_compress(t) + base[2][32:]
+    r_ident = (1).to_bytes(32, "little") + base[2][32:]
+    rows = _rlc_rows([(base[0], base[1], r_torsion), (base[0], base[1], r_ident)], 2)
+    codes, _ = _host_rlc(lane_lib, rows)
+    assert codes.tolist() == [0, 1]

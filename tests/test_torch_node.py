@@ -24,6 +24,7 @@ import urllib.request
 
 import numpy as np
 import pytest
+import torch
 
 import chip_smoke
 from at2_node_tpu.client import Client as RefClient
@@ -349,6 +350,55 @@ async def test_node_commits_through_the_injected_batch_verifier():
         await ver.close()
 
 
+async def test_node_commits_through_the_rlc_route():
+    """The same with ``mode="rlc"``: every flush goes through the RLC
+    stages (their plain version here), and the transfer commits."""
+    ver = make_verifier("cuda", device="cpu", mode="rlc", batch_size=16, max_delay=0.002)
+    try:
+        await ver.warmup()
+        cfg = make_configs([PORT], np.random.default_rng(27))[0]
+        service = await Service.start(cfg, verifier=ver)
+        try:
+            async with Client(f"http://{cfg.rpc_address}") as client:
+                sender, recipient = _keys(27, 2)
+                await client.send_asset(sender, 1, recipient.public, 13)
+                await wait_for_sequence(client, sender.public, 1)
+                assert await client.get_balance(recipient.public) == 100_013
+            stats = service.snapshot_stats()
+            assert stats["verifier_mode_name"] == "rlc" and stats["verifier_rlc_batches"] >= 1
+            assert stats["verifier_route_rlc"] == stats["verifier_rlc_batches"]
+            assert service.build_block()["rlc_kernel_launches"] == 0  # the plain version ran
+        finally:
+            await service.close()
+    finally:
+        await ver.close()
+
+
+async def test_rlc_mode_config_loads_and_builds_its_verifier(monkeypatch):
+    """A config whose ``[verifier]`` table says ``kind = "cuda"`` and ``mode =
+    "rlc"`` loads and builds the CUDA verifier on its RLC route (sent to the
+    CPU here, where there is no card), which verifies."""
+    from at2_node_tpu_torch.crypto.verifier import CudaBatchVerifier
+    from at2_node_tpu_torch.ops import cuda_verify
+
+    text = make_configs([PORT], np.random.default_rng(28))[0].dumps()
+    table = '[verifier]\nkind = "cpu"\nbatch_size = 256\nmax_delay = 0.002\nmode = "auto"\n'
+    assert table in text
+    cfg = port_config.Config.loads(text.replace(table, table.replace('"cpu"', '"cuda"').replace(
+        '"auto"', '"rlc"').replace("256", "2")))
+    assert (cfg.verifier.kind, cfg.verifier.mode, cfg.verifier.batch_size) == ("cuda", "rlc", 2)
+    monkeypatch.setattr(cuda_verify, "resolve_device", lambda device=None: torch.device("cpu"))
+    ver = cfg.verifier.make()
+    try:
+        assert isinstance(ver, CudaBatchVerifier) and ver.router.mode == "rlc"
+        kp = _keys(28, 1)[0]
+        items = [(kp.public, b"one", kp.sign(b"one")), (kp.public, b"two", kp.sign(b"one"))]
+        assert await ver.verify_many(items) == [True, False]
+        assert ver.stats()["rlc_batches"] == 1
+    finally:
+        await ver.close()
+
+
 @pytest.mark.parametrize("direction", ["reference_to_port", "port_to_reference"])
 async def test_checkpoint_carries_across_packages(direction, tmp_path):
     """A node's ``[checkpoint]`` file, written at shutdown by one package,
@@ -383,3 +433,17 @@ async def test_chip_smoke_phase6_runs_with_the_cpu_kind(capsys):
     assert sum(n["rejected_at_ingress"] for n in runs["node_grpc_unary"]["nodes"]) == 2
     assert "2 tampered transfers refused with INVALID_ARGUMENT" in out
     assert "every server exited 0 on SIGTERM" in out
+
+
+async def test_chip_smoke_phase7_runs_with_the_cpu_kind(capsys):
+    """Phase 7's harness: the ``[verifier]`` table of every node is edited
+    to ``mode = "rlc"`` (the CPU kind's host RLC engine here) and the runs
+    come back under their own names."""
+    runs = await chip_smoke.node_path(10, None, None, kind="cpu", n_clients=4, per_batched=5,
+                                      per_unary=2, n_tampered=2, deadline_s=60.0, mode="rlc")
+    out = capsys.readouterr().out
+    assert set(runs) == {"rlc_node_grpc_batched", "rlc_node_grpc_unary"}
+    assert runs["rlc_node_grpc_unary"]["transfers"] == 8
+    assert 'mode = "rlc", up and meshed' in out
+    assert "rlc node net: 2 tampered transfers refused with INVALID_ARGUMENT" in out.replace(
+        "4 accounts equal the python-int replay on all 4 nodes; ", "")

@@ -1,9 +1,13 @@
 """CudaBatchVerifier on the CPU (``device="cpu"``) against the dispatch
-contract of the JAX package's ``TpuBatchVerifier`` (tests/test_pipeline.py):
-stage overlap, bounded FIFO flood, adaptive bucket shaping, close and
-cancel hygiene, stats, staging-pool reuse, device and mode rules."""
+contract of the JAX package's ``TpuBatchVerifier`` (tests/test_pipeline.py
+and tests/test_rlc_verify.py): stage overlap, bounded FIFO flood, adaptive
+bucket shaping, close and cancel hygiene, stats, staging-pool reuse,
+device and mode rules, and the RLC route (exact verdicts, fallbacks and
+reroutes counted, the router's default, its warm-up, capacity released
+while a flush resolves)."""
 
 import asyncio
+import threading
 import time
 
 import numpy as np
@@ -11,7 +15,8 @@ import pytest
 import torch
 
 from at2_node_tpu.crypto.verifier import TpuBatchVerifier
-from at2_node_tpu_torch.crypto.keys import SignKeyPair
+from at2_node_tpu_torch.crypto import _fallback as fb
+from at2_node_tpu_torch.crypto.keys import SignKeyPair, verify_one
 from at2_node_tpu_torch.crypto.verifier import CudaBatchVerifier, make_verifier
 from at2_node_tpu_torch.ops import ed25519 as kernel
 
@@ -215,10 +220,18 @@ async def test_device_none_means_the_gpu():
 
 
 async def test_rlc_modes_and_other_kinds_raise():
-    with pytest.raises(NotImplementedError, match="ops/aggregate.py"):
-        CudaBatchVerifier(device="cpu", mode="rlc")
-    with pytest.raises(NotImplementedError, match="ops/aggregate.py"):
-        CudaBatchVerifier(device="cpu", mode="auto", rlc_min_batch=128)
+    """``mode="rlc"``, and ``auto`` with ``rlc_min_batch``, take the CUDA
+    verifier's RLC route (its plain version here) and verify exactly; an
+    unknown mode and the kinds this build does not have raise."""
+    kp = SignKeyPair(bytes(range(2, 34)))
+    items = [(kp.public, b"a", kp.sign(b"a")), (kp.public, b"b", kp.sign(b"x"))]
+    for kw in (dict(mode="rlc"), dict(mode="auto", rlc_min_batch=2)):
+        ver = CudaBatchVerifier(device="cpu", batch_size=2, max_delay=0.001, **kw)
+        assert await ver.verify_many(items) == [True, False]
+        st = ver.stats()
+        assert st["route_rlc"] == st["rlc_batches"] == st["rlc_fallbacks"] == 1
+        assert st["mode_name"] == kw["mode"]
+        await ver.close()
     with pytest.raises(ValueError):
         CudaBatchVerifier(device="cpu", mode="fast")
     for kind in ("tpu", "pool"):
@@ -287,3 +300,147 @@ async def test_cpu_verifier_matches_the_reference_per_sig(n, native, monkeypatch
     assert st["route_rlc"] == 0 and st["rlc_batches"] == 0
     await ver.close()
     await ref.close()
+
+
+# -- the RLC route --------------------------------------------------------
+
+
+def _torsion_point():
+    """An extended point of order 8: [L]Q for a curve point Q off the
+    subgroup."""
+    for y in range(2, 60):
+        try:
+            q = fb._pt_decompress(y.to_bytes(32, "little"))
+        except Exception:
+            continue
+        t = fb._pt_mul(kernel.L, q)
+        if not fb._pt_equal(t, fb._IDENT):
+            return t
+    raise AssertionError("no torsion point found")
+
+
+def _torsion_item(rng, in_key):
+    """A signature whose public key (``in_key``) or whose R carries an
+    8-torsion component: code 2 (reroute) or code 0 on the RLC route."""
+    a, r = (int.from_bytes(rng.bytes(32), "little") % kernel.L for _ in range(2))
+    big_a, big_r = fb._pt_mul(a, fb._BASE), fb._pt_mul(r, fb._BASE)
+    if in_key:
+        big_a = fb._pt_add(big_a, _torsion_point())
+    else:
+        big_r = fb._pt_add(big_r, _torsion_point())
+    a_enc, r_enc, msg = fb._pt_compress(big_a), fb._pt_compress(big_r), rng.bytes(24)
+    s = (r + fb._sha512_int(r_enc, a_enc, msg) % kernel.L * a) % kernel.L
+    return (a_enc, msg, r_enc + s.to_bytes(32, "little"))
+
+
+async def test_rlc_flushes_give_exact_verdicts_and_count_fallbacks():
+    """Flush 1 holds a tampered lane and a torsioned key (code 2): the
+    equation fails and a lane is rerouted, so one exact pass resolves it.
+    Flush 2 holds a torsioned R (code 0) among clean lanes: its codes are
+    its verdicts. Every verdict equals ``verify_one``'s."""
+    rng = np.random.default_rng(60)
+    keys = [SignKeyPair(rng.bytes(32)) for _ in range(8)]
+    first = [(k.public, b"f%d" % i, k.sign(b"f%d" % i)) for i, k in enumerate(keys)]
+    first[2] = (first[2][0], b"tampered", first[2][2])
+    first[5] = _torsion_item(rng, in_key=True)
+    second = [(k.public, b"s%d" % i, k.sign(b"s%d" % i)) for i, k in enumerate(keys)]
+    second[6] = _torsion_item(rng, in_key=False)
+    ver = CudaBatchVerifier(device="cpu", mode="rlc", batch_size=8, max_delay=0.001)
+    try:
+        for items in (first, second):
+            assert await ver.verify_many(items) == [verify_one(*it) for it in items]
+        st = ver.stats()
+    finally:
+        await ver.close()
+    assert [verify_one(*it) for it in second].count(False) == 1
+    assert st["rlc_batches"] == 2 and st["rlc_fallbacks"] == 1 and st["rlc_reroutes"] == 1
+    assert st["batches"] == 2 and st["signatures"] == 16 and st["route_rlc"] == 2
+
+
+class GatedRlc(CudaBatchVerifier):
+    """Stage-stubbed verifier (the reference's ``_GatedRlcVerifier``): the
+    RLC finish stage blocks on a gate so a test can cancel callers while a
+    flush is resolving."""
+
+    def __init__(self, gate, **kw):
+        super().__init__(device="cpu", **kw)
+        self._gate = gate
+
+    def _prep(self, pks, msgs, sigs, bucket):
+        return len(pks)
+
+    def _launch(self, packed):
+        return packed
+
+    def _finish(self, handle, n):
+        return np.ones(n, dtype=bool)
+
+    def _prep_rlc(self, pks, msgs, sigs, bucket):
+        return len(pks)
+
+    def _launch_rlc(self, packed):
+        return packed
+
+    def _finish_rlc(self, handle, n):
+        self._gate.wait(10.0)
+        return True, np.ones(n, dtype=np.uint8)
+
+
+def _fake(n, tag):
+    return [(b"p" * 32, tag + b"%d" % i, b"s" * 64) for i in range(n)]
+
+
+async def test_cancelled_verify_many_mid_rlc_releases_capacity():
+    gate = threading.Event()
+    ver = GatedRlc(gate, batch_size=8, max_delay=30.0, max_queue=16, mode="rlc")
+    try:
+        # a full batch flushes at once and blocks in _finish_rlc
+        inflight = asyncio.ensure_future(ver.verify_many(_fake(8, b"in")))
+        await asyncio.sleep(0.05)
+        assert ver.router.last_route == "rlc"
+        # a chunk under batch_size parks in the accumulator with capacity held
+        parked = asyncio.ensure_future(ver.verify_many(_fake(4, b"park")))
+        await asyncio.sleep(0.05)
+        assert ver._cap_free == ver.max_queue - 4
+        parked.cancel()
+        with pytest.raises(asyncio.CancelledError):
+            await parked
+        assert ver._cap_free == ver.max_queue and not gate.is_set()
+        gate.set()
+        assert await inflight == [True] * 8
+        assert ver.rlc_batches == 1 and ver.rlc_fallbacks == 0
+    finally:
+        gate.set()
+        await ver.close()
+    assert ver._inflight._value == ver.PIPELINE_DEPTH
+    assert ver._cap_free == ver.max_queue
+
+
+@pytest.mark.parametrize("mode", ["auto", "per_sig"])
+async def test_auto_without_rlc_min_batch_never_routes_rlc(mode):
+    """The reference's device default: plain ``auto`` keeps the
+    per-signature kernel, as ``per_sig`` does."""
+    gate = threading.Event()
+    gate.set()
+    ver = GatedRlc(gate, batch_size=8, max_delay=0.001, mode=mode)
+    try:
+        assert await ver.verify_many(_fake(8, b"auto")) == [True] * 8
+        assert ver.rlc_batches == 0 and ver.router.route_rlc == 0
+        assert ver.router.route_per_sig == (mode == "auto")
+    finally:
+        await ver.close()
+
+
+async def test_rlc_warmup_checks_both_routes(monkeypatch):
+    """In mode "rlc" the warm-up also runs the RLC stages at every bucket and
+    refuses a route that does not give eq_ok with code 1 for a good
+    signature and no eq_ok beside a tampered one."""
+    ver = CudaBatchVerifier(device="cpu", mode="rlc", batch_size=4, max_delay=0.001)
+    try:
+        await ver.warmup()
+        assert ver.stats()["rlc_batches"] == 1  # the final request's flush
+        monkeypatch.setattr(ver, "_run_batch_rlc", lambda pks, *a: (True, np.ones(len(pks), np.uint8)))
+        with pytest.raises(RuntimeError, match="rlc warm-up failed for bucket 4"):
+            await ver.warmup()
+    finally:
+        await ver.close()

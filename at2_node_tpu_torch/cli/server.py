@@ -7,6 +7,7 @@ server binary (`at2-node/src/bin/server/main.rs:17-140`):
 
     server config new <node_address> <rpc_address>   > node.toml
     server config new --verifier cpu ...             # no card: host verifier
+    server config new --verifier pool ...            # every local card
     server config get-node < node.toml               # shareable fragment
     server run < node.toml                           # serve forever
 
@@ -26,18 +27,14 @@ from ..crypto.keys import ExchangeKeyPair, SignKeyPair
 from ..node.config import Config, VerifierConfig
 
 
-def maybe_initialize() -> None:
-    """Multi-host bring-up. The reference joins a multi-host device runtime
-    when ``AT2_COORDINATOR`` is set; this build has no multi-host runtime
-    yet (ROADMAP.md, queue 1, item 11), so it refuses the variable rather
-    than run single-host. Without it: nothing to do."""
-    import os
+def maybe_initialize() -> bool:
+    """Multi-host bring-up: joins the ``torch.distributed`` process group
+    when ``AT2_COORDINATOR`` (with ``AT2_NUM_PROCESSES`` and
+    ``AT2_PROCESS_ID``) is set; a no-op returning False otherwise, so
+    single-host servers stay light at boot."""
+    from ..parallel.multihost import maybe_initialize as init
 
-    if os.environ.get("AT2_COORDINATOR"):
-        raise NotImplementedError(
-            "AT2_COORDINATOR: multi-host bring-up is not ported yet "
-            "(ROADMAP.md, queue 1, item 11)"
-        )
+    return init()
 
 
 def cmd_config_new(args: argparse.Namespace) -> int:
@@ -127,9 +124,10 @@ def build_parser() -> argparse.ArgumentParser:
     new.add_argument("node_address", help="host:port of the node-to-node plane")
     new.add_argument("rpc_address", help="host:port of the client gRPC plane")
     new.add_argument(
-        "--verifier", choices=("cuda", "cpu"), default=VerifierConfig.kind,
+        "--verifier", choices=("cuda", "cpu", "pool"), default=VerifierConfig.kind,
         help="[verifier] kind: the kernel on the first CUDA device "
-        "(default) or the host verifier",
+        "(default), the host verifier, or the pool over every local CUDA "
+        "device",
     )
     new.set_defaults(func=cmd_config_new)
 

@@ -911,6 +911,18 @@ class CudaBatchVerifier:
         failed RLC flush)."""
         return self._finish(self._launch(self._prep(pks, msgs, sigs, bucket)), len(pks))
 
+    def _staged_overrides_consistent(self) -> bool:
+        """True when the staged pipeline is this instance's verify logic:
+        nothing is overridden, or the stages are. A subclass that overrides
+        only ``_run_batch`` must not be bypassed by the stages."""
+        cls = type(self)
+        run_overridden = cls._run_batch is not CudaBatchVerifier._run_batch
+        stages_overridden = (
+            cls._prep is not CudaBatchVerifier._prep
+            or cls._launch is not CudaBatchVerifier._launch
+        )
+        return stages_overridden or not run_overridden
+
     # -- RLC stages: the same three threads, but the device runs one
     # classified RLC check (ops/aggregate.py) instead of the per-signature
     # kernel; _resolve_rlc interprets its (eq_ok, codes) ---------------------
@@ -948,9 +960,12 @@ class CudaBatchVerifier:
         sig = kp.sign(msg)
         pks, msgs, sigs = [kp.public, kp.public], [msg, msg + b"!"], [sig, sig]
         loop = asyncio.get_running_loop()
-        # whether the router can send a flush to RLC at all
+        # whether the router can send a flush to RLC at all (never past a
+        # subclass's own _run_batch)
         mode = self.router.mode
-        warm_rlc = mode == "rlc" or (mode == "auto" and self.router.min_batch < (1 << 30))
+        warm_rlc = (
+            mode == "rlc" or (mode == "auto" and self.router.min_batch < (1 << 30))
+        ) and self._staged_overrides_consistent()
         if self.device.type == "cuda":
             await loop.run_in_executor(self._device_pool, cuda_verify.build)
             if warm_rlc:
@@ -1004,27 +1019,36 @@ class CudaBatchVerifier:
         self.h_queue_wait.observe(self._clock.monotonic() - batch[0].enqueued_at)
         await self._inflight.acquire()
         # route this flush: per dispatch, from its size and the per-source
-        # failure rates; per_sig mode always takes the per-signature kernel
-        rlc = self.router.mode != "per_sig" and self.router.choose(pks) == "rlc"
+        # failure rates; per_sig mode, and a subclass that overrides only
+        # _run_batch, always take the per-signature path
+        staged = self._staged_overrides_consistent()
+        rlc = self.router.mode != "per_sig" and staged and self.router.choose(pks) == "rlc"
         # the clock starts after the depth gate: dispatch latency is one
         # batch's prep -> results time, not its queue wait
         t0 = self._clock.monotonic()
         try:
-            prepared = await loop.run_in_executor(
-                self._prep_pool, self._prep_rlc if rlc else self._prep, pks, msgs, sigs, bucket
-            )
-            t1 = self._clock.monotonic()
-            self.total_prep_s += t1 - t0
-            self.h_prep.observe(t1 - t0)
-            handle = await loop.run_in_executor(
-                self._device_pool, self._launch_rlc if rlc else self._launch, prepared
-            )
-            t2 = self._clock.monotonic()
-            self.total_launch_s += t2 - t1
-            self.h_launch.observe(t2 - t1)
-            finish = loop.run_in_executor(
-                self._finish_pool, self._finish_rlc if rlc else self._finish, handle, len(batch)
-            )
+            if staged:
+                prepared = await loop.run_in_executor(
+                    self._prep_pool, self._prep_rlc if rlc else self._prep, pks, msgs, sigs, bucket
+                )
+                t1 = self._clock.monotonic()
+                self.total_prep_s += t1 - t0
+                self.h_prep.observe(t1 - t0)
+                handle = await loop.run_in_executor(
+                    self._device_pool, self._launch_rlc if rlc else self._launch, prepared
+                )
+                t2 = self._clock.monotonic()
+                self.total_launch_s += t2 - t1
+                self.h_launch.observe(t2 - t1)
+                finish = loop.run_in_executor(
+                    self._finish_pool, self._finish_rlc if rlc else self._finish, handle, len(batch)
+                )
+            else:
+                # the subclass's _run_batch, whole, on the device thread (no
+                # stage overlap; the depth bound still queues batches)
+                finish = loop.run_in_executor(
+                    self._device_pool, self._run_batch, pks, msgs, sigs, bucket
+                )
         except BaseException as exc:
             self._inflight.release()
             self._fail_batch(batch, exc)
@@ -1120,11 +1144,16 @@ class CudaBatchVerifier:
 
 
 def make_verifier(kind: str, **kwargs) -> Verifier:
-    """Config-driven verifier selection (``verifier = "cpu" | "cuda"``).
-    ``"cuda"`` never falls back to the CPU: without a GPU it raises unless
-    the caller passes ``device="cpu"``."""
+    """Config-driven verifier selection (``verifier = "cpu" | "cuda" |
+    "pool"``). ``"cuda"`` and ``"pool"`` never fall back to the CPU: without
+    a GPU they raise unless the caller passes ``device="cpu"`` (``"cuda"``)
+    or ``devices=["cpu"] * k`` (``"pool"``)."""
     if kind == "cpu":
         return CpuVerifier(**kwargs)
     if kind == "cuda":
         return CudaBatchVerifier(**kwargs)
+    if kind == "pool":
+        from ..parallel.pool import PoolVerifier
+
+        return PoolVerifier(**kwargs)
     raise ValueError(f"unknown verifier kind: {kind!r}")

@@ -15,15 +15,16 @@ Two conscious additions over the reference schema:
   sign their own Echo/Ready attestations (the work the CUDA verifier
   batches), so peers must know each other's ed25519 keys, not only the
   channel (X25519) keys;
-* an optional `[verifier]` table — `kind = "cpu" | "cuda"`, `batch_size`,
-  `max_delay`, `mode`, `rlc_min_batch` — the verifier plugin selection.
-  ``"cuda"`` is the counterpart of the JAX package's ``"tpu"``: the batch
-  verifier on the first CUDA device, which never falls back to the CPU.
-  It is the default, so ``config new`` writes it (the JAX package writes
-  ``"cpu"``); ``config new --verifier cpu`` writes the host verifier for
-  a host without a card. A ``"tpu"`` table raises ``ValueError`` naming ``"cuda"``; ``"pool"``
-  (the mesh-sharded device verifier) is not ported yet (ROADMAP.md,
-  item 10) and raises ``NotImplementedError``;
+* an optional `[verifier]` table — `kind = "cpu" | "cuda" | "pool"`,
+  `batch_size`, `max_delay`, `mode`, `rlc_min_batch` — the verifier plugin
+  selection. ``"cuda"`` is the counterpart of the JAX package's ``"tpu"``:
+  the batch verifier on the first CUDA device, which never falls back to
+  the CPU. It is the default, so ``config new`` writes it (the JAX package
+  writes ``"cpu"``); ``config new --verifier cpu`` writes the host verifier
+  for a host without a card. ``"pool"`` splits each batch over every
+  local CUDA device (``parallel/pool.py``; only ``batch_size`` and
+  ``max_delay`` apply). A ``"tpu"`` table raises ``ValueError`` naming
+  ``"cuda"``;
 * an optional `[observability]` table — `stats_interval` (seconds between
   structured stats log lines; 0 disables), `profile_dir` (when set, a
   `torch.profiler` trace of the node, CUDA activity included when the
@@ -95,11 +96,6 @@ class VerifierConfig:
                 'verifier.kind "tpu" is the JAX build\'s; this build\'s device '
                 'verifier is kind = "cuda"'
             )
-        if self.kind == "pool":
-            raise NotImplementedError(
-                'verifier.kind "pool" (the mesh-sharded device verifier) is '
-                "not ported yet: ROADMAP.md, queue 1, item 10"
-            )
 
     def make(self):
         from ..crypto.verifier import make_verifier
@@ -113,6 +109,12 @@ class VerifierConfig:
         # CPU verification.
         if self.kind == "cpu":
             return make_verifier("cpu", mode=self.mode, **rlc_kw)
+        if self.kind == "pool":
+            # the device pool over every local CUDA device; it splits the
+            # per-signature kernel regardless of mode
+            return make_verifier(
+                self.kind, batch_size=self.batch_size, max_delay=self.max_delay
+            )
         return make_verifier(
             self.kind,
             batch_size=self.batch_size,

@@ -88,7 +88,27 @@ is printed):
    every batch went through RLC, the RLC kernels launched once a batch,
    the verify kernel once a fallback, and a node that refused a twin fell
    back at least once.
-8. One JSON line describing the kernels (their times and bound at every
+8. BASELINE config 5, the device pool (``parallel/pool.py``), on one card:
+   8a. phase 3's batches at every shape, with tampered lanes on both sides
+       of every shard seam, through pools of 1, 2 and 4 shards on cuda:0
+       (each shard on its own streams): the pool's verdicts and bitmask
+       must equal the verify kernel's, the plain version's on the card and
+       the expected ones, and ``verify_and_count``'s count their popcount;
+       the whole pool launch (uploads, kernels, copies back) is timed with
+       CUDA events at 4,096 and 65,536 lanes beside the kernel alone.
+   8b. the 1M replay (``tools/scale_demo.py::_phase_replay``): 1,048,576
+       signatures through ``verify_batch_sharded`` on the pool of 1, in
+       4,096-lane buckets; every one must verify.
+   8c. 32 nodes share one pool (``_phase_net``): ``[verifier] kind =
+       "pool"``, batch_size 4,096, max_delay 10 ms; 32 in-process nodes,
+       thresholds 21 (2f + 1, f = 10), 32 clients x 4 transfers through
+       ``tools/loadgen.py``; every transfer must commit on every node,
+       every ledger equal the python-int replay, and the kernel launch once
+       a shard a batch. The open-file limit is raised to its hard limit
+       first (the net holds ~2,000 sockets), and the phase fails below it.
+   8d. the entry (``entry.entry()``'s function on its example arguments)
+       and ``dryrun_multichip(4, devices=["cuda:0"] * 4)``.
+9. One JSON line describing the kernels (their times and bound at every
    shape, every main-path run, the ptxas figures), then the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -152,6 +172,18 @@ RLC_REROUTE = ("noncanonical_y", "x0_sign", "a_torsion")
 CERT_N = 64
 # phase 7: run B's unary transfers a client
 NODE_RLC_PER_UNARY = 16
+# phase 8: pool sizes on one card, the shapes its launch is timed at, the
+# 1M replay, and the 32-node net of BASELINE config 5 (SCALE_r05's round-5
+# shape: 32 clients x 4 transfers)
+POOL_SHARDS = (1, 2, 4)
+POOL_TIMED_LANES = (4096, 65536)
+REPLAY_SIGNATURES = 1 << 20
+REPLAY_BUCKET = 4096
+SCALE_NODES = 32
+SCALE_CLIENTS = 32
+SCALE_PER_CLIENT = 4
+SCALE_POOL_BATCH = 4096
+SCALE_DEADLINE_S = 240.0
 
 RFC8032_TEST1 = (
     "9d61b19deffd5a60ba844af492ec2cc44449c5697b326919703bac031cae7f60",
@@ -1570,6 +1602,218 @@ def node_checks(net: ServerNet, run: dict, by_lanes, card, kind: str, refused: C
             "submit_s": run["submit_s"], "nodes": per_node}
 
 
+# -- phase 8 ---------------------------------------------------------------
+
+
+def seam_lanes(n: int, shard_counts) -> list:
+    """The lanes on both sides of every shard seam of every pool size: a
+    pool of k pads n to a multiple of 8 k lanes and cuts it in k."""
+    from at2_node_tpu_torch.parallel import pool
+
+    lanes = set()
+    for k in shard_counts:
+        q = pool._pool_quantum(k)
+        per = -(-n // q) * q // k
+        for s in range(per, n, per):
+            lanes.update((s - 1, s))
+    return sorted(lanes)
+
+
+def pool_launch_ms(torch, host, devs, streams, reps: int) -> float:
+    """The whole pool launch on the device clock: every shard's upload,
+    kernel and copy back, each shard on its streams, from an event that
+    every stream waits for to one recorded after every shard's last copy;
+    the mean over ``reps`` launches."""
+    from at2_node_tpu_torch.parallel import pool
+
+    cur = torch.cuda.current_stream()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record(cur)
+    for copy_s, compute_s in streams:
+        copy_s.wait_event(start)
+        compute_s.wait_event(start)
+    for _ in range(reps):
+        handles = pool.verify_sharded_packed(host, devs, streams)
+    for h in handles:
+        cur.wait_event(h.done)
+    end.record(cur)
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def pool_vs_kernel(torch, mat: Material, rng, by_lanes: dict) -> dict:
+    """Phase 8a: pools of POOL_SHARDS shards on cuda:0 against the verify
+    kernel, its plain version on the card and the expected verdicts, at
+    phase 3's shapes; the pool's launch timed at POOL_TIMED_LANES."""
+    from at2_node_tpu_torch.ops import cuda_verify
+    from at2_node_tpu_torch.ops import ed25519 as v
+    from at2_node_tpu_torch.parallel import pool
+
+    pools = {k: pool.make_pool_devices(["cuda:0"] * k) for k in POOL_SHARDS}
+    streams = {k: pool.shard_streams(devs) for k, devs in pools.items()}
+    mismatches, max_err = 0, 0
+    by_shards: dict = {}
+    plain_ms: dict = {}
+    for n in KERNEL_LANES:
+        items, expect, pad = mat.batch(n, rng)
+        seams = seam_lanes(n, POOL_SHARDS)
+        for j, lane in enumerate(seams):  # a tampered lane each side of a seam
+            items[lane] = mat.tampered["r_flip" if j % 2 else "s_flip"][j % len(mat.tampered["r_flip"])]
+            expect[lane], pad[lane] = False, False
+        rows = np.empty((n, v.PACKED_WIDTH), dtype=np.uint8)
+        v.fill_packed([i[0] for i in items], [i[1] for i in items], [i[2] for i in items], rows)
+        rows[pad, 128] = 0
+        dev = torch.from_numpy(rows).cuda()
+        k1_bytes = cuda_verify.verify_packed(dev).cpu().numpy()
+        plain = v.verify_packed(dev).cpu().numpy()
+        k1 = np.unpackbits(k1_bytes, count=n).astype(bool)
+        p_bits = np.unpackbits(plain, count=n).astype(bool)
+        line = []
+        for k, devs in pools.items():
+            q = pool._pool_quantum(k)
+            padded = np.zeros((-(-n // q) * q, v.PACKED_WIDTH), dtype=np.uint8)
+            padded[:n] = rows
+            host = torch.from_numpy(padded).pin_memory()
+            bits = pool.finish_sharded(pool.verify_sharded_packed(host, devs, streams[k]))
+            ok = np.unpackbits(bits, count=padded.shape[0]).astype(bool)
+            _, count = pool.verify_and_count(host, devs, streams[k])
+            bad = int((ok[:n] != k1).sum() + (ok[:n] != p_bits).sum() + (ok[:n] != expect).sum()
+                      + ok[n:].sum()) + int(count != int(ok.sum()))
+            err = int(np.abs(bits[:len(k1_bytes)].astype(int) - k1_bytes.astype(int)).max())
+            mismatches += bad
+            max_err = max(max_err, err)
+            line.append(f"{k} shard{'s' if k > 1 else ''}: {bad}")
+            if n in POOL_TIMED_LANES:
+                reps = max(3, min(50, 200_000 // n))
+                pool_launch_ms(torch, host, devs, streams[k], reps)  # warm the allocators
+                ms = pool_launch_ms(torch, host, devs, streams[k], reps)
+                by_shards.setdefault(n, {})[k] = ms
+        log(f"pool vs kernel {n:6d} lanes ({len(seams)} seam lanes tampered): mismatches by pool "
+            f"size {', '.join(line)}; count = popcount")
+        if n in POOL_TIMED_LANES:
+            reps = max(3, min(50, 200_000 // n))
+            k1_ms = cuda_ms(torch, lambda: cuda_verify.verify_packed(dev), reps)
+            by_shards[n]["k1_kernel_ms"] = k1_ms
+            if n == max(POOL_TIMED_LANES):
+                # the pool's plain version: the plain verify of each shard
+                for k in POOL_SHARDS:
+                    shards = [s.contiguous() for s in dev.chunk(k)]
+                    plain_ms[k] = cuda_ms(torch, lambda: [v.verify_packed(s) for s in shards], 1)
+                log(f"pool plain version {n:6d} lanes (the plain verify a shard, on the card): "
+                    + ", ".join(f"{k} shard{'s' if k > 1 else ''} {ms:.1f} ms"
+                                for k, ms in plain_ms.items()))
+            log(f"pool launch {n:6d} lanes (uploads, kernels, copies back; CUDA events): "
+                + ", ".join(f"{k} shard{'s' if k > 1 else ''} {by_shards[n][k]:.3f} ms"
+                            for k in POOL_SHARDS)
+                + f"; the kernel alone on rows already on the card {k1_ms:.3f} ms "
+                f"(bound {by_lanes[n]['bound_ms']:.3f} ms)")
+    check(mismatches == 0, f"pool, verify kernel, plain version and expected verdicts differ: {mismatches}")
+    return {"mismatches": mismatches, "max_abs_err": max_err, "by_shards": by_shards,
+            "plain_ms": plain_ms}
+
+
+def replay_phase() -> dict:
+    """Phase 8b: the 1M replay through the pool of one shard on cuda:0; the
+    verify kernel's launch count is set to 0 just before and read just
+    after (the warm-up batch included)."""
+    from at2_node_tpu_torch.ops import cuda_verify
+    from at2_node_tpu_torch.tools import scale_demo
+
+    cuda_verify.launches = 0
+    out = scale_demo._phase_replay(REPLAY_SIGNATURES, bucket=REPLAY_BUCKET, devices=["cuda:0"])
+    launches = cuda_verify.launches
+    rounds = REPLAY_SIGNATURES // REPLAY_BUCKET
+    check(out["replayed_signatures"] == REPLAY_SIGNATURES == out["verified_ok"],
+          f"replay: {out['verified_ok']} of {out['replayed_signatures']} verified")
+    check(launches == rounds + 1, f"replay: {launches} kernel launches for {rounds} + 1 batches")
+    log(f"replay: {out['verified_ok']:,} of {REPLAY_SIGNATURES:,} signatures verified through the pool "
+        f"of 1 in {out['seconds']:.3f} s = {out['verifies_per_sec']:,.0f} sigs/s (host clock, "
+        f"{REPLAY_BUCKET}-lane buckets, host prep included); {launches} kernel launches")
+    return {**out, "launches": launches}
+
+
+async def scale_net_phase(seed: int, by_lanes: dict) -> dict:
+    """Phase 8c: 32 in-process nodes behind one pool built from the
+    ``[verifier] kind = "pool"`` table. The kernel's launch count is set to
+    0 just before and read just after (the pool's warm-up included)."""
+    import logging
+    import resource
+
+    from at2_node_tpu_torch.ops import cuda_verify
+    from at2_node_tpu_torch.tools import _common, scale_demo
+
+    need = scale_demo.open_files_needed(SCALE_NODES)
+    soft0, hard0 = resource.getrlimit(resource.RLIMIT_NOFILE)
+    soft, hard = scale_demo.raise_open_files(need)
+    log(f"scale net: open-file limit {soft0} (hard {hard0}) raised to {soft}; "
+        f"{SCALE_NODES} nodes need about {need}; ephemeral ports {_common.ephemeral_range()}, "
+        f"the nodes listen outside them where there is room")
+    # loadgen's transfers go to their sender: the ledger notes each one
+    logging.getLogger("at2_node_tpu_torch.ledger.accounts").setLevel(logging.ERROR)
+    f = (SCALE_NODES - 1) // 3
+    cuda_verify.launches = 0
+    net = await scale_demo._phase_net(
+        SCALE_NODES, SCALE_CLIENTS, SCALE_PER_CLIENT, 2 * f + 1, pool_batch=SCALE_POOL_BATCH,
+        seed=seed + 8, commit_timeout=SCALE_DEADLINE_S)
+    launches = cuda_verify.launches
+    want = SCALE_CLIENTS * SCALE_PER_CLIENT
+    shards = len(net["pool_devices"])
+    check(net["committed"] == net["submitted"] == want,
+          f"scale net: {net['committed']} of {want} transfers committed")
+    check(net["ledgers_equal_replay_on_all_nodes"], "scale net: a ledger differs from the replay")
+    check(net["pool_batches"] > 0, "scale net: the pool dispatched no batch")
+    check(net["kernel_launches"] == net["pool_batches"] * shards,
+          f"scale net: {net['pool_batches']} batches x {shards} shards but "
+          f"{net['kernel_launches']} kernel launches")
+    shard_lanes = SCALE_POOL_BATCH // shards
+    busy = (net["kernel_launches_in_window"] * by_lanes[shard_lanes]["ms"]
+            / (1e3 * net["commit_seconds"]))
+    log(f"scale net: {want} transfers from {SCALE_CLIENTS} clients committed on all {SCALE_NODES} "
+        f"nodes (thresholds {2 * f + 1}; the net came up at start {net['net_starts']}) in "
+        f"{net['commit_seconds']:.3f} s = "
+        f"{net['committed_tx_per_sec']:,.1f} tx/s (first submission to the last sequence read on the "
+        f"last node; every ledger equal to the replay {net['all_nodes_extra_seconds']:.3f} s later); "
+        f"pool {net['pool_devices']}: {net['pool_batches']} batches, {net['pool_signatures']:,} "
+        f"signatures, occupancy {net['pool_batch_occupancy']:.4f}, dispatch {net['pool_avg_dispatch_ms']:.3f} "
+        f"ms a batch (counted once the pool settled); {net['kernel_launches_in_window']} kernel launches in the window, "
+        f"{net['kernel_launches']} once settled, {launches} with the warm-up; kernel busy "
+        f"{100 * busy:.2f}% of the window (phase 3 times)")
+    return {**net, "launches": launches, "kernel_busy_share": busy,
+            "open_files": {"soft_before": soft0, "soft": soft, "hard": hard, "need": need}}
+
+
+def entry_phase(torch) -> dict:
+    """Phase 8d: the entry's function on its example arguments on the card,
+    then the dry run over four shards of cuda:0. The kernel's launch count
+    is set to 0 just before and read just after."""
+    from at2_node_tpu_torch import entry
+    from at2_node_tpu_torch.ops import cuda_verify
+
+    cuda_verify.launches = 0
+    fn, args = entry.entry()
+    check(all(a.device.type == "cuda" for a in args), "entry's example arguments are not on the card")
+    bits = fn(*args)
+    torch.cuda.synchronize()
+    ok = np.unpackbits(bits.cpu().numpy(), count=args[0].shape[0]).astype(bool)
+    check((ok == entry._expected(8, args[0].shape[0])).all(), f"entry: verdicts {ok.tolist()}")
+    entry.dryrun_multichip(4, devices=["cuda:0"] * 4)
+    launches = cuda_verify.launches
+    check(launches == 1 + 4, f"entry and dry run: {launches} kernel launches, expected 5")
+    log(f"entry: the verify kernel on 8 real lanes (lane 1 tampered) in a 64-row bucket gave the "
+        f"expected verdicts; dryrun_multichip(4) over cuda:0 x 4 passed; {launches} kernel launches")
+    return {"launches": launches}
+
+
+def pool_path(torch, mat: Material, rng, seed: int, by_lanes: dict) -> dict:
+    t0 = time.perf_counter()
+    cmp = pool_vs_kernel(torch, mat, rng, by_lanes)
+    replay = replay_phase()
+    net = asyncio.run(scale_net_phase(seed, by_lanes))
+    ent = entry_phase(torch)
+    log(f"phase 8 (the device pool, BASELINE config 5) took {time.perf_counter() - t0:.1f} s")
+    return {"compare": cmp, "replay": replay, "scale_net": net, "entry": ent}
+
+
 def device_share(run: dict, by_lanes: dict) -> float:
     """Kernel time on the card over the run's wall time, from phase 3's
     per-bucket kernel times (device clock) and the run's flush buckets."""
@@ -1605,6 +1849,7 @@ def main() -> None:
     log(f"rlc node net (SendAssetBatch): {rlc_nodes['rlc_node_grpc_batched']['tx_per_s']:,.0f} tx/s "
         f"against {nodes['node_grpc_batched']['tx_per_s']:,.0f} tx/s for phase 6's run A (mode "
         f"\"auto\", the verify kernel) in this call")
+    pooled = pool_path(torch, mat, rng, args.seed, kp["by_lanes"])
 
     from at2_node_tpu_torch.ops import cuda_verify
 
@@ -1667,6 +1912,33 @@ def main() -> None:
             "main_path": {**rlc_nodes, "certificate": cert},
             "card": card,
         })
+    # the pool: the verify kernel once a shard; its main path is phase 8's
+    # replay, 32-node net and entry (each count set to 0 just before)
+    cmp = pooled["compare"]
+    top_lanes = max(POOL_TIMED_LANES)
+    top = kp["by_lanes"][top_lanes]
+    kernels.append({
+        "name": "ed25519_verify_pool",
+        "route": "cuda",
+        "composition": "the verify kernel once a shard, each shard on its own streams",
+        "source": "at2_node_tpu_torch/csrc/ed25519_verify.cu",
+        "replaces": "at2_node_tpu/parallel/pool.py:81",
+        "launches": sum(pooled[k]["launches"] for k in ("replay", "scale_net", "entry")),
+        "mismatches": cmp["mismatches"],
+        "max_abs_err": cmp["max_abs_err"],
+        "lanes": top_lanes,
+        "shards": 1,
+        "ms": cmp["by_shards"][top_lanes][1],
+        "plain_ms": cmp["plain_ms"][1],
+        "bound_ms": top["bound_ms"],
+        "bound_by": top["bound_by"],
+        "library_ms": None,
+        "ms_by_shards": {str(n): {str(k): ms for k, ms in r.items()}
+                         for n, r in cmp["by_shards"].items()},
+        "plain_ms_by_shards": {str(k): ms for k, ms in cmp["plain_ms"].items()},
+        "main_path": {k: pooled[k] for k in ("replay", "scale_net", "entry")},
+        "card": card,
+    })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

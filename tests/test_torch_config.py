@@ -1,7 +1,7 @@
 """The port's node configuration against the JAX package's: a TOML the
 reference writes loads in the port and dumps byte-equal (and back), the
 verifier kinds map onto this build's (``"cuda"`` for ``"tpu"``; ``"pool"``
-not ported), and a config that turns on a subsystem not ported yet is
+as written), and a config that turns on a subsystem not ported yet is
 refused at ``Service.start``, naming its ROADMAP item.
 """
 
@@ -90,8 +90,11 @@ def test_cuda_kind_roundtrips_and_tpu_pool_raise():
     assert port_default.dumps() == cuda and ref_default.dumps() == text
     with pytest.raises(ValueError, match='"cuda"'):
         port_config.Config.loads(text.replace('kind = "cpu"', 'kind = "tpu"'))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        port_config.Config.loads(text.replace('kind = "cpu"', 'kind = "pool"'))
+    # the device pool loads and dumps as written (it raised until it was
+    # ported); without a GPU, building it raises
+    pool = text.replace('kind = "cpu"', 'kind = "pool"')
+    assert port_config.Config.loads(pool).dumps() == pool
+    assert port_config.Config.loads(pool).verifier.kind == "pool"
 
 
 async def test_default_verifier_table_builds_the_auto_cpu_verifier():
@@ -142,8 +145,13 @@ def test_deferred_tables_raise_at_start_naming_their_item(tables, what):
 
 
 def test_coordinator_raises_naming_item_11(monkeypatch):
+    """``AT2_COORDINATOR`` is no longer refused (item 11 is ported): alone
+    it raises the reference's ``ValueError`` naming the two other
+    variables; unset, bring-up is a no-op."""
     monkeypatch.delenv("AT2_COORDINATOR", raising=False)
-    server_cli.maybe_initialize()
+    assert server_cli.maybe_initialize() is False
     monkeypatch.setenv("AT2_COORDINATOR", "10.0.0.1:1234")
-    with pytest.raises(NotImplementedError, match="item 11"):
+    monkeypatch.delenv("AT2_NUM_PROCESSES", raising=False)
+    monkeypatch.delenv("AT2_PROCESS_ID", raising=False)
+    with pytest.raises(ValueError, match="AT2_NUM_PROCESSES"):
         server_cli.maybe_initialize()

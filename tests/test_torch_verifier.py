@@ -222,7 +222,8 @@ async def test_device_none_means_the_gpu():
 async def test_rlc_modes_and_other_kinds_raise():
     """``mode="rlc"``, and ``auto`` with ``rlc_min_batch``, take the CUDA
     verifier's RLC route (its plain version here) and verify exactly; an
-    unknown mode and the kinds this build does not have raise."""
+    unknown mode and the kinds this build does not have raise; ``"pool"``
+    takes a device list, not a device."""
     kp = SignKeyPair(bytes(range(2, 34)))
     items = [(kp.public, b"a", kp.sign(b"a")), (kp.public, b"b", kp.sign(b"x"))]
     for kw in (dict(mode="rlc"), dict(mode="auto", rlc_min_batch=2)):
@@ -234,9 +235,14 @@ async def test_rlc_modes_and_other_kinds_raise():
         await ver.close()
     with pytest.raises(ValueError):
         CudaBatchVerifier(device="cpu", mode="fast")
-    for kind in ("tpu", "pool"):
-        with pytest.raises(ValueError):
-            make_verifier(kind, device="cpu")
+    with pytest.raises(ValueError):
+        make_verifier("tpu", device="cpu")
+    with pytest.raises(TypeError):
+        make_verifier("pool", device="cpu")
+    pooled = make_verifier("pool", devices=["cpu"] * 2, batch_size=2)
+    assert type(pooled).__name__ == "PoolVerifier" and pooled.batch_size == 16
+    assert await pooled.verify_many(items) == [True, False]
+    await pooled.close()
     # the CPU verifier takes every mode, as the reference's does (its RLC
     # route is the host engine); auto is its default
     for mode in ("auto", "rlc", "per_sig"):

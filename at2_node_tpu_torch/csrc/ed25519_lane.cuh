@@ -1,7 +1,8 @@
 // ed25519 verification math for the Hopper kernels: GF(2^255-19), RFC 8032
 // decompression, and the extended-coordinate point operations run by a
 // "quad", four threads that verify one signature (ed25519_verify.cu) or
-// classify one lane of the RLC check (ed25519_rlc.cu, quad_rlc below)
+// classify one lane of the RLC check (ed25519_rlc.cu: quad_rlc below, or
+// its four parts, quad_rlc_point to quad_rlc_residual_r, on four quads)
 // together.
 //
 // The same source builds two ways. Under nvcc the quad functions are
@@ -487,11 +488,42 @@ QUAD_FN void quad_used(int j, unsigned used) {
 #endif
 }
 
+// Every role's field operations count again (host build only).
+QUAD_FN void quad_count_all() {
+#ifndef __CUDACC__
+  lane_counts.on = true;
+#endif
+}
+
+// Whether `b` holds in any thread of the warp (under g++, on the quad).
+QUAD_FN bool warp_any(bool b) {
+#ifdef __CUDACC__
+  return __any_sync(0xffffffffu, b);
+#else
+  return b;
+#endif
+}
+
 // Limb i of component k of table entry e: word (e * NL + i) * stride + k.
 QUAD_FN Fe tab_load(const int32_t* tab, int stride, int e, int k) {
   Fe r;
 #pragma unroll
   for (int i = 0; i < NL; i++) r.v[i] = tab[(e * NL + i) * stride + k];
+  return r;
+}
+
+// The same, for a table in device memory that no thread writes (the
+// constant base table): read through the read-only data path under nvcc.
+QUAD_FN Fe tab_load_ro(const int32_t* tab, int stride, int e, int k) {
+  Fe r;
+#pragma unroll
+  for (int i = 0; i < NL; i++) {
+#ifdef __CUDACC__
+    r.v[i] = __ldg(tab + (e * NL + i) * stride + k);
+#else
+    r.v[i] = tab[(e * NL + i) * stride + k];
+#endif
+  }
   return r;
 }
 
@@ -587,14 +619,17 @@ QUAD_FN QFe quad_uncache(const int32_t* tab, int stride, int e) {
 
 // [digit] times the table's point, |digit| below the table's size, in
 // cached form: the negation -(X, Y, Z, T) swaps Y-X with Y+X and negates
-// 2dT.
+// 2dT. RO: the table is the constant base table in device memory
+// (tab_load_ro), else shared memory.
+template <bool RO = false>
 QUAD_FN QFe quad_lookup(const int32_t* tab, int stride, int digit) {
   const bool neg = digit < 0;
   const int e = neg ? -digit : digit;
   QFe q;
   for (int j = 0; j < QN; j++) {
     const int k = role(j);
-    const Fe c = tab_load(tab, stride, e, k < 2 ? k ^ (int)neg : k);
+    const int c_k = k < 2 ? k ^ (int)neg : k;
+    const Fe c = RO ? tab_load_ro(tab, stride, e, c_k) : tab_load(tab, stride, e, c_k);
     q.r[j] = fe_select(neg & (k == 3), fe_neg(c), c);
   }
   return q;
@@ -790,6 +825,14 @@ LANE_FN int l_digit(int i) {
   return d - ((d & 8) << 1);
 }
 
+// The lane code from the row's valid byte and A's and R's verdicts (each
+// decoded and torsion-free): 2 when the row is valid and A is not clean
+// (reroute to the exact check), else 0 when the row is invalid or R is not
+// clean, else 1 (in the equation).
+LANE_FN int rlc_code(bool valid, bool a_clean, bool r_clean) {
+  return !valid ? 0 : (!a_clean ? 2 : (r_clean ? 1 : 0));
+}
+
 // [L]p == identity, exactly: Horner over L's signed digits with p's table
 // of multiples 0..8 (cached), from acc = p (the top digit): 252 doublings
 // and 30 additions. The branch on a digit is the same in every thread.
@@ -811,7 +854,8 @@ QUAD_FN bool quad_torsion_free(const QFe& p, const int32_t* tab, int stride) {
 // torsion (reroute to the exact check), else 0 when the row is invalid or
 // R is undecodable or carries torsion, else 1 (in the equation). `e` is
 // the residual whatever the code; the caller masks it.
-//   consts: CONST_WORDS words (the base table included);
+//   consts: CONST_WORDS words in device memory (the base table, read
+//           through tab_load_ro, included);
 //   rtab, atab: this quad's tables of R and A, TABLE_ENTRIES cached
 //           entries each at `tstride`;
 //   digits: RLC_DIGIT_WORDS words at `dstride` for the recoded scalars.
@@ -886,7 +930,7 @@ QUAD_FN int quad_rlc(const uint8_t* row, const int32_t* consts, int32_t* rtab, i
   quad_sync();
   const int32_t* btab = consts + CONST_BTABLE;
   acc = quad_add(acc, quad_lookup(atab, tstride, zh_top));
-  acc = quad_add(acc, quad_lookup(btab, 4, -zs_top));
+  acc = quad_add(acc, quad_lookup<true>(btab, 4, -zs_top));
 #pragma unroll 1
   for (int w = 31; w >= 0; w--) {
 #pragma unroll 1
@@ -896,15 +940,113 @@ QUAD_FN int quad_rlc(const uint8_t* row, const int32_t* consts, int32_t* rtab, i
       acc = quad_add(acc, quad_lookup(rtab, tstride, digit<4>(z_digits, dstride, 2 * w + half)));
       acc = quad_add(acc, quad_lookup(atab, tstride, digit<4>(zh_digits, dstride, 2 * w + half)));
     }
-    acc = quad_add(acc, quad_lookup(btab, 4, -digit<8>(zs_digits, dstride, w)));
+    acc = quad_add(acc, quad_lookup<true>(btab, 4, -digit<8>(zs_digits, dstride, w)));
   }
   *e = acc;
-#ifndef __CUDACC__
-  lane_counts.on = true;
-#endif
-  const bool valid = row[160] != 0;
-  const bool a_tainted = !(a_ok & a_free);
-  return !valid ? 0 : (a_tainted ? 2 : ((r_ok & r_free) ? 1 : 0));
+  quad_count_all();
+  return rlc_code(row[160] != 0, a_ok & a_free, r_ok & r_free);
+}
+
+// -- the RLC lane split over four quads ------------------------------------
+//
+// ed25519_rlc.cu's split layout runs one lane on four quads, each in its
+// own warp, in two steps: the quads of A and R decompress their point and
+// write its table (quad_rlc_point), then, once every table is in place,
+// they run [L]P (quad_torsion_free) while a third quad computes [zh]A -
+// [zs]B (quad_rlc_residual_a) and a fourth [z]R (quad_rlc_residual_r).
+// The lane's residual is the sum of the last two; its code is rlc_code of
+// the first two's verdicts. The g++ build runs the four in order on one
+// host quad. [z]R does not share the doublings of [zh]A as in quad_rlc: 128
+// doublings more a lane, 32 additions fewer (z's top 32 windows are 0).
+
+// The point encoded at `enc` (A at row + 0, R at row + 32), decompressed
+// by every role, in extended coordinates (X, Y, 1, XY) into `p`, and its
+// multiples 0..8 (cached) into `tab` at `stride`. Returns whether it
+// decoded; an undecodable point is the base point, as in quad_rlc.
+QUAD_FN bool quad_rlc_point(const uint8_t* enc, const int32_t* consts, int32_t* tab, int stride,
+                            QFe* p) {
+  const Fe one = fe_small(1);
+  const Fe d2 = fe_load(consts + CONST_D2);
+  bool ok = false;
+  QFe pt;
+  for (int j = 0; j < QN; j++) {
+    const int k = role(j);
+    quad_used(j, 0x1);  // every role repeats role 0's decompression
+    Fe x, y;
+    ok = decompress(enc, consts, &x, &y);
+    quad_used(j, 0x8);
+    const Fe t = fe_mul(x, y);
+    pt.r[j] = fe_select(k == 0, x, fe_select(k == 1, y, fe_select(k == 2, one, t)));
+  }
+  quad_table(pt, d2, tab, stride);
+  *p = pt;
+  quad_count_all();
+  return ok;
+}
+
+// [zh]A - [zs]B of the row: A's table at `atab` (quad_rlc_point's), zh's
+// signed radix-16 digits (stored by role 0) and zs's radix-256 digits
+// (role 1) in 16 words at `dstride`; the base table through
+// tab_load_ro. The carries start it, then 32 steps of two radix-16
+// windows of zh and one radix-256 digit of -zs, as in quad_rlc.
+QUAD_FN QFe quad_rlc_residual_a(const uint8_t* row, const int32_t* consts, const int32_t* atab,
+                                int tstride, uint32_t* digits, int dstride) {
+  const uint8_t* zh_le = row + 96;
+  const uint8_t* zs_le = row + 128;
+  uint32_t* zh_digits = digits;
+  uint32_t* zs_digits = digits + 8 * dstride;
+  int zh_top = 0, zs_top = 0;
+  for (int j = 0; j < QN; j++) {
+    const int k = role(j);
+    zh_top = recode<4>(zh_le, zh_digits, dstride, k == 0);
+    zs_top = recode<8>(zs_le, zs_digits, dstride, k == 1);
+  }
+  quad_sync();
+  const int32_t* btab = consts + CONST_BTABLE;
+  QFe acc = quad_add(quad_identity(), quad_lookup(atab, tstride, zh_top));
+  acc = quad_add(acc, quad_lookup<true>(btab, 4, -zs_top));
+#pragma unroll 1
+  for (int w = 31; w >= 0; w--) {
+#pragma unroll 1
+    for (int half = 1; half >= 0; half--) {
+#pragma unroll 1
+      for (int i = 0; i < 4; i++) acc = quad_double(acc);
+      acc = quad_add(acc, quad_lookup(atab, tstride, digit<4>(zh_digits, dstride, 2 * w + half)));
+    }
+    acc = quad_add(acc, quad_lookup<true>(btab, 4, -digit<8>(zs_digits, dstride, w)));
+  }
+  quad_count_all();
+  return acc;
+}
+
+// [z]R of the row: R's table at `rtab`, z's signed radix-16 digits (stored
+// by role 0) in 8 words at `dstride`. z is below 2^Z_BITS = 2^128 in every
+// row rlc_prep packs, so its digits past 32 are 0 and digit 32 (0 or 1) is
+// the carry out of the low 128 bits: 32 windows, 128 doublings. A row with
+// a longer z takes all 64 windows and the carry out of the top; the quads
+// of a warp take the same count, so every shuffle has all 32 lanes.
+QUAD_FN QFe quad_rlc_residual_r(const uint8_t* row, const int32_t* rtab, int tstride,
+                                uint32_t* digits, int dstride) {
+  const uint8_t* z_le = row + 64;
+  int z_top = 0;
+  bool long_z = false;
+  for (int j = 0; j < QN; j++) {
+    z_top = recode<4>(z_le, digits, dstride, role(j) == 0);
+    for (int b = 16; b < 32; b++) long_z |= z_le[b] != 0;
+  }
+  long_z = warp_any(long_z);
+  quad_sync();
+  const int windows = long_z ? 64 : 32;
+  // the top digit's multiple as (2X : 2Y : 2Z): a doubling comes first
+  QFe acc = quad_uncache(rtab, tstride, long_z ? z_top : digit<4>(digits, dstride, 32));
+#pragma unroll 1
+  for (int w = windows - 1; w >= 0; w--) {
+#pragma unroll 1
+    for (int i = 0; i < 4; i++) acc = quad_double(acc);
+    acc = quad_add(acc, quad_lookup(rtab, tstride, digit<4>(digits, dstride, w)));
+  }
+  quad_count_all();
+  return acc;
 }
 
 }  // namespace ed25519_lane

@@ -38,18 +38,35 @@ void ed25519_lane_verify_rows(const uint8_t* packed, int64_t n, const int32_t* c
   }
 }
 
-// codes[i] and the residual [z]R + [zh]A - [zs]B (an extended point, (4,
-// 10) limbs, unmasked) of the host quad's RLC lane math on packed RLC row
-// i (ops/aggregate.py RLC_PACKED_WIDTH bytes), for n rows
-void ed25519_lane_rlc_rows(const uint8_t* packed, int64_t n, const int32_t* consts,
+// codes[i] and the residual [z]R + [zh]A - [zs]B of the host quad's RLC
+// lane math on packed RLC row i (ops/aggregate.py RLC_PACKED_WIDTH bytes),
+// for n rows, as two extended points a row ((2, 4, 10) limbs, unmasked)
+// whose sum is the residual. Layout 0 (whole, quad_rlc): the residual and
+// the identity; layout 1 (split): quad_rlc_point of A and of R, their [L]P
+// checks, then [zh]A - [zs]B and [z]R, run in that order.
+void ed25519_lane_rlc_rows(const uint8_t* packed, int64_t n, const int32_t* consts, int layout,
                            uint8_t* codes, int32_t* residuals) {
   int32_t rtab[TABLE_ENTRIES * ENTRY_WORDS];
   int32_t atab[TABLE_ENTRIES * ENTRY_WORDS];
   uint32_t digits[RLC_DIGIT_WORDS];
   for (int64_t i = 0; i < n; i++) {
-    QFe e;
-    codes[i] = (uint8_t)quad_rlc(packed + i * RLC_ROW_BYTES, consts, rtab, atab, 4, digits, 1, &e);
-    quad_to(e, residuals + POINT_WORDS * i);
+    const uint8_t* row = packed + i * RLC_ROW_BYTES;
+    int32_t* out = residuals + 2 * POINT_WORDS * i;
+    if (layout == 0) {
+      QFe e;
+      codes[i] = (uint8_t)quad_rlc(row, consts, rtab, atab, 4, digits, 1, &e);
+      quad_to(e, out);
+      quad_to(quad_identity(), out + POINT_WORDS);
+      continue;
+    }
+    QFe a, r;
+    const bool a_ok = quad_rlc_point(row, consts, atab, 4, &a);
+    const bool r_ok = quad_rlc_point(row + 32, consts, rtab, 4, &r);
+    const bool a_clean = a_ok & quad_torsion_free(a, atab, 4);
+    const bool r_clean = r_ok & quad_torsion_free(r, rtab, 4);
+    quad_to(quad_rlc_residual_a(row, consts, atab, 4, digits, 1), out);
+    quad_to(quad_rlc_residual_r(row, rtab, 4, digits + 16, 1), out + POINT_WORDS);
+    codes[i] = (uint8_t)rlc_code(row[160] != 0, a_clean, r_clean);
   }
 }
 

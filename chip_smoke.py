@@ -10,8 +10,9 @@ is printed):
 2. Build: the CUDA verify kernel and the two RLC kernels (nvcc, sm_90a,
    always rebuilt), the native host prep and the native message-plane
    ingest (g++), all from the sources in this checkout, built side by
-   side; each kernel's registers, stack frame and spill bytes are read
-   from ptxas's report.
+   side; each kernel's registers, stack frame and spill bytes (the RLC
+   lanes kernel's for each layout's instantiation) are read from ptxas's
+   report.
 3. Kernel vs plain: about 1,000 signed transfers plus the RFC 8032 TEST 1
    vector and eight tamper classes, tiled into batches of every bucket the
    main path launches (65,536, 8,192, 4,096, 1,024, 256 and 64 lanes), a
@@ -19,19 +20,24 @@ is printed):
    kernel's bitmask must equal the plain PyTorch version's bitmask,
    computed on the card, and the expected verdicts: 0 mismatches. Both are
    timed with CUDA events.
-3b. RLC kernels vs plain: at the same shapes, three batches each of
-   phase 3's valid lanes with ~2% of every class that stays out of the
-   equation (high S, bad lengths, padding, an R with an 8-torsion
-   component: code 0), then also of every rerouted class (a non-canonical
-   or x = 0 key, a key with an 8-torsion component: code 2), then also
-   one tampered lane. The lanes kernel's codes and the fold kernel's
-   eq_ok must equal the plain version's on the card and the expected ones
-   (eq_ok True without the tampered lane, False with it); the fold kernel
-   must equal the plain fold on the lanes kernel's own partial points;
-   the composed verdicts (the codes where eq_ok holds and no lane has code
-   2, else the verify kernel) must equal the verify kernel's bitmask and
-   the expected verdicts. Each kernel, the verify kernel on the same rows
-   and the plain version are timed with CUDA events.
+3b. RLC kernels vs plain: at the same shapes, and at the most lanes one
+   wave of the split layout holds and one block more (the crossover of
+   ``cuda_rlc.choose_layout``), three batches each of phase 3's valid
+   lanes with ~2% of every class that stays out of the equation (high S,
+   bad lengths, padding, an R with an 8-torsion component: code 0), then
+   also of every rerouted class (a non-canonical or x = 0 key, a key with
+   an 8-torsion component: code 2), then also one tampered lane. On every
+   batch ``rlc_packed`` and each layout of the lanes kernel launched apart
+   (whole and split), each followed by the fold: the codes and eq_ok must
+   equal the plain version's on the card and the expected ones (eq_ok
+   True without the tampered lane, False with it); the fold must equal
+   the plain fold on the lanes kernel's own partial points, and, on
+   partial points that do not vanish, the known answer; the composed
+   verdicts (the codes where eq_ok holds and no lane has code 2, else the
+   verify kernel) must equal the verify kernel's bitmask and the expected
+   verdicts. Each layout, the fold (and the one-block fold it replaced),
+   the verify kernel on the same rows and the plain version are timed
+   with CUDA events.
 3c. The certificate (BASELINE config 4, n = 64): ``aggregate_verify`` on
    the card on a clean certificate and on one with a tampered
    attestation must equal the verify kernel's all-valid verdict, and
@@ -221,11 +227,21 @@ def device_report(torch) -> str:
 # -- phase 2 ---------------------------------------------------------------
 
 
+# ptxas names: a kernel, or an instantiation of the RLC lanes template
+# (its mangled name) by layout
+PTXAS_ENTRIES = {
+    "ed25519_verify_kernel": "ed25519_verify_kernel",
+    "ed25519_rlc_lanes[whole]": "ed25519_rlc_lanesILi0E",
+    "ed25519_rlc_lanes[split]": "ed25519_rlc_lanesILi1E",
+    "ed25519_rlc_fold": "ed25519_rlc_fold",
+}
+
+
 def parse_ptxas(log_text: str, kernel: str) -> dict:
     """Registers, stack frame and spill bytes of `kernel`'s entry function
-    from nvcc's ``-Xptxas -v`` output."""
+    (PTXAS_ENTRIES) from nvcc's ``-Xptxas -v`` output."""
     entry = next((m for m in re.finditer(r"Compiling entry function '([^']+)'", log_text)
-                  if kernel in m.group(1)), None)
+                  if PTXAS_ENTRIES[kernel] in m.group(1)), None)
     check(entry is not None, f"no ptxas report for {kernel}")
     rest = log_text[entry.end():]
     regs = re.search(r"Used (\d+) registers", rest)
@@ -267,7 +283,8 @@ def build_all() -> dict:
         f"{'on' if ingest_ok else 'OFF, the broadcast plane parses and tallies in python'}")
     ptxas = {}
     for mod, names, build_s in ((cuda_verify, ("ed25519_verify_kernel",), kern_s),
-                                (cuda_rlc, ("ed25519_rlc_lanes", "ed25519_rlc_fold"), rlc_s)):
+                                (cuda_rlc, ("ed25519_rlc_lanes[whole]", "ed25519_rlc_lanes[split]",
+                                            "ed25519_rlc_fold"), rlc_s)):
         for line in mod.build_log.splitlines():
             if "registers" in line or "spill" in line:
                 log("  ptxas:", line.strip())
@@ -438,7 +455,12 @@ class Material:
 
 
 def cuda_ms(torch, fn, reps: int) -> float:
+    """Device time of one call of ``fn`` over ``reps`` calls in a row, by
+    CUDA events. The card first sleeps ~0.1 ms a call, so the calls are
+    enqueued before the first runs: the time is the device's alone, not the
+    host's launch interval, which a kernel of tens of us does not hide."""
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(reps * 1e-4 * 1.98e9))
     start.record()
     for _ in range(reps):
         fn()
@@ -498,47 +520,90 @@ def kernel_vs_plain(torch, mat: Material, rng) -> dict:
 # -- phase 3b --------------------------------------------------------------
 
 
-def rlc_bounds(n: int, blocks: int) -> dict:
+def rlc_bounds(n: int, nparts: int) -> dict:
     """The least time of each RLC kernel on these n lanes: the larger of
     its bytes over the memory rate and its multiply-add slots over the
     issue rate. The lanes kernel reads each row and the constants and
-    writes a code a lane and a point a block, and does every lane's
-    operations and the n - blocks additions of its block trees; the fold
-    reads the blocks' points and does blocks - 1 additions."""
+    writes a code a lane and a partial point (nparts of them, by layout),
+    and does every lane's operations (the whole layout's count, the
+    function's least) and the n - nparts additions of its block trees; the
+    fold reads the partials and does nparts - 1 additions."""
     from at2_node_tpu_torch.ops import cuda_rlc, cuda_verify
 
     point = 4 * 40
     out = {}
     for name, ops, nbytes in (
         ("ed25519_rlc_lanes",
-         n * cuda_rlc.INT32_MULADD_SLOTS_PER_LANE + (n - blocks) * cuda_rlc.INT32_MULADD_SLOTS_PER_FOLD_ADD,
-         n * 161 + n + blocks * point + 4 * len(cuda_verify.lane_consts())),
-        ("ed25519_rlc_fold", (blocks - 1) * cuda_rlc.INT32_MULADD_SLOTS_PER_FOLD_ADD,
-         blocks * point + 1 + 40),
+         n * cuda_rlc.INT32_MULADD_SLOTS_PER_LANE[cuda_rlc.WHOLE]
+         + (n - nparts) * cuda_rlc.INT32_MULADD_SLOTS_PER_FOLD_ADD,
+         n * 161 + n + nparts * point + 4 * len(cuda_verify.lane_consts())),
+        ("ed25519_rlc_fold", (nparts - 1) * cuda_rlc.INT32_MULADD_SLOTS_PER_FOLD_ADD,
+         nparts * point + 1 + 40),
     ):
         ops_s, bytes_s = ops / H100_INT32_MULADD_PER_S, nbytes / H100_BYTES_PER_S
         out[name] = (1e3 * max(ops_s, bytes_s), "operations" if ops_s >= bytes_s else "bytes")
     return out
 
 
-def rlc_vs_plain(torch, mat: Material, rng) -> dict:
-    """Phase 3b. Each kernel is also launched apart, straight through the
-    library, to compare the fold with the plain fold of the lanes kernel's
-    own partial points and to time each; ``rlc_packed`` runs both."""
+def fold_known_answer(torch, lib, consts, work, rng) -> int:
+    """The fold on points that do not all vanish: the lanes kernel's
+    partials of a batch are mostly the identity, so here the partials are
+    random multiples of B and, last, their negated sum (eq_ok True) or
+    their sum (False). Returns the mismatches against the expected eq_ok
+    and the plain fold."""
     from at2_node_tpu_torch.ops import aggregate as agg
-    from at2_node_tpu_torch.ops import cuda_rlc, cuda_verify
-    from at2_node_tpu_torch.ops import ed25519 as v
+    from at2_node_tpu_torch.ops import cuda_rlc
     from at2_node_tpu_torch.ops import edwards as ed
     from at2_node_tpu_torch.ops import field as fe
 
+    eq = torch.empty((1,), dtype=torch.uint8, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    k = rng.integers(1, 16, size=work.nparts - 1)
+    (sx, sy), p, m = (0, 1), ed.point_to_ints(ed.BASE), int(k.sum())
+    while m:  # [sum k]B, double and add
+        if m & 1:
+            sx, sy = ed.affine_add_ints((sx, sy), p)
+        p, m = ed.affine_add_ints(p, p), m >> 1
+    bad = 0
+    for sign, want in ((-1, True), (1, False)):
+        pts = np.stack([ed.BASE_TABLE[int(j)] for j in k] + [ed.point_from_ints(sign * sx % fe.P, sy)])
+        work.points().copy_(torch.as_tensor(pts, dtype=torch.int32))
+        cuda_rlc.launch_fold(lib, consts, eq.data_ptr(), work, stream)
+        fold_plain = bool(agg.is_identity(agg.tree_reduce_points(work.points().to(torch.int64))).item())
+        got = bool(eq.item())
+        bad += int(got != want) + int(fold_plain != want)
+    return bad
+
+
+def rlc_vs_plain(torch, mat: Material, rng) -> dict:
+    """Phase 3b. ``rlc_packed`` runs both kernels in the layout
+    ``choose_layout`` gives; each layout of the lanes kernel and the fold
+    are also launched apart, straight through the library, on every batch:
+    their codes and eq_ok against the plain version, the expected ones and
+    the verify kernel's composed verdicts, the fold against the plain fold
+    of the lanes kernel's own partial points. Each layout, the fold over
+    its partials (and over one block, the alternative it replaced) and the
+    verify kernel are timed on the clean batch."""
+    from at2_node_tpu_torch.ops import aggregate as agg
+    from at2_node_tpu_torch.ops import cuda_rlc, cuda_verify
+    from at2_node_tpu_torch.ops import ed25519 as v
+
     lib = cuda_rlc.build()
     consts = torch.as_tensor(cuda_verify.lane_consts()).cuda()
-    per_block = lib.ed25519_rlc_lanes_per_block()
+    wave = cuda_rlc.split_wave_lanes(torch.device("cuda", 0))
+    per_sm = {name: lib.ed25519_rlc_lanes_occupancy(layout)
+              for layout, name in enumerate(cuda_rlc.LAYOUT_NAMES)}
+    log(f"rlc lanes kernel: blocks an SM {per_sm}; the split layout while n <= {wave} lanes "
+        f"(one wave), the whole layout past it")
+    layouts = list(enumerate(cuda_rlc.LAYOUT_NAMES))
     by_lanes: dict = {"ed25519_rlc_lanes": {}, "ed25519_rlc_fold": {}}
     mism = Counter()
     max_err = {"ed25519_rlc_lanes": 0, "ed25519_rlc_fold": 0}
-    for n in KERNEL_LANES:
-        blocks = -(-n // per_block)
+    stream = torch.cuda.current_stream().cuda_stream
+    # every shape of phase 3, then the crossover: the most lanes one wave
+    # of the split layout holds, and one block more
+    for n in KERNEL_LANES + (wave, wave + cuda_rlc.LANES_PER_BLOCK[cuda_rlc.SPLIT]):
+        chosen = cuda_rlc.choose_layout(n, wave)
         for kind, reroute, tamper in (("clean", False, False), ("rerouted", True, False),
                                       ("tampered", True, True)):
             items, want_codes, want_ok, pad = mat.rlc_batch(n, rng, reroute, tamper)
@@ -552,90 +617,94 @@ def rlc_vs_plain(torch, mat: Material, rng) -> dict:
 
             eq, codes = cuda_rlc.rlc_packed(dev)
             bits = cuda_verify.verify_packed(k1_dev)
-            # the kernels apart: codes and partial points, then the fold
-            out = torch.empty((n + 1,), dtype=torch.uint8, device="cuda")
-            partials = torch.empty((blocks, 4, 10), dtype=torch.int32, device="cuda")
-            stream = torch.cuda.current_stream().cuda_stream
-
-            def lanes_launch():
-                check(lib.ed25519_rlc_lanes_launch(dev.data_ptr(), n, consts.data_ptr(), out.data_ptr(),
-                                                   partials.data_ptr(), stream) == 0, "lanes launch")
-
-            def fold_launch():
-                check(lib.ed25519_rlc_fold_launch(partials.data_ptr(), blocks, consts.data_ptr(),
-                                                  out[n:].data_ptr(), stream) == 0, "fold launch")
-
-            lanes_launch()
-            fold_launch()
+            # each layout apart: codes and partial points, then the fold
+            outs, works = {}, {}
+            for layout, name in layouts:
+                outs[name] = torch.empty((n + 1,), dtype=torch.uint8, device="cuda")
+                works[name] = cuda_rlc.Scratch(n, layout, dev.device)
+                cuda_rlc.launch_lanes(lib, dev, consts, outs[name].data_ptr(), works[name], stream)
+                cuda_rlc.launch_fold(lib, consts, outs[name].data_ptr() + n, works[name], stream)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
             p_eq, p_codes = agg.rlc_graph_packed_plain(dev)
             end.record()
-            fold_plain = agg.is_identity(agg.tree_reduce_points(partials.to(torch.int64)))
+            fold_plain = {name: agg.is_identity(agg.tree_reduce_points(w.points().to(torch.int64)))
+                          for name, w in works.items()}
             torch.cuda.synchronize()
             plain_ms = start.elapsed_time(end)
             eq, codes = bool(eq.item()), codes.cpu().numpy()
             p_eq, p_codes = bool(p_eq.item()), p_codes.cpu().numpy()
-            apart = out.cpu().numpy()
             k1 = np.unpackbits(bits.cpu().numpy(), count=n).astype(bool)
             composed = (codes == 1) if eq and not (codes == 2).any() else k1
             bad = {
-                "lanes": int((codes != p_codes).sum() + (codes != want_codes).sum()
-                             + (apart[:n] != codes).sum()),
-                "fold": int(eq != p_eq) + int(eq != (not tamper)) + int(bool(apart[n]) != eq)
-                + int(bool(fold_plain.item()) != eq),
+                "lanes": int((codes != p_codes).sum() + (codes != want_codes).sum()),
+                "fold": int(eq != p_eq) + int(eq != (not tamper)),
                 "composed": int((composed != k1).sum() + (k1 != want_ok).sum()),
             }
+            for name, out in outs.items():
+                apart = out.cpu().numpy()
+                a_eq, a_codes = bool(apart[n]), apart[:n]
+                a_composed = (a_codes == 1) if a_eq and not (a_codes == 2).any() else k1
+                bad["lanes"] += int((a_codes != p_codes).sum() + (a_codes != want_codes).sum())
+                bad["fold"] += int(a_eq != p_eq) + int(bool(fold_plain[name].item()) != a_eq)
+                bad["composed"] += int((a_composed != k1).sum())
+                max_err["ed25519_rlc_lanes"] = max(max_err["ed25519_rlc_lanes"],
+                                                   int(np.abs(a_codes.astype(int) - p_codes.astype(int)).max()))
+                max_err["ed25519_rlc_fold"] = max(max_err["ed25519_rlc_fold"], abs(int(a_eq) - int(p_eq)))
             mism.update(bad)
-            max_err["ed25519_rlc_lanes"] = max(max_err["ed25519_rlc_lanes"],
-                                               int(np.abs(codes.astype(int) - p_codes.astype(int)).max()))
-            max_err["ed25519_rlc_fold"] = max(max_err["ed25519_rlc_fold"], abs(int(eq) - int(p_eq)))
             log(f"rlc vs plain {n:6d} lanes ({kind}): eq_ok {eq}, codes 0/1/2 "
-                f"{[int((codes == c).sum()) for c in range(3)]}, {sum(bad.values())} mismatches "
+                f"{[int((codes == c).sum()) for c in range(3)]}, both layouts apart and "
+                f"rlc_packed ({cuda_rlc.LAYOUT_NAMES[chosen]}): {sum(bad.values())} mismatches "
                 f"{dict(bad)}, plain {plain_ms:.1f} ms")
             if kind != "clean":
                 continue
-            # the fold on points that do not all vanish: the lanes kernel's
-            # partials of a batch are mostly the identity, so here the blocks'
-            # points are random multiples of B and, last, their negated sum
-            # (eq_ok True) or their sum (False)
-            k = rng.integers(1, 16, size=blocks - 1)
-            (sx, sy), p, m = (0, 1), ed.point_to_ints(ed.BASE), int(k.sum())
-            while m:  # [sum k]B, double and add
-                if m & 1:
-                    sx, sy = ed.affine_add_ints((sx, sy), p)
-                p, m = ed.affine_add_ints(p, p), m >> 1
-            for sign, want in ((-1, True), (1, False)):
-                pts = np.stack([ed.BASE_TABLE[int(j)] for j in k] + [ed.point_from_ints(sign * sx % fe.P, sy)])
-                partials.copy_(torch.as_tensor(pts, dtype=torch.int32))
-                fold_launch()
-                fold_plain = agg.is_identity(agg.tree_reduce_points(partials.to(torch.int64)))
-                got = bool(out[n].item())
-                bad_fold = int(got != want) + int(bool(fold_plain.item()) != want)
-                mism.update({"fold": bad_fold})
-                max_err["ed25519_rlc_fold"] = max(max_err["ed25519_rlc_fold"], int(got != bool(fold_plain.item())))
             reps = max(3, min(30, 60_000 // n))
-            lanes_ms = cuda_ms(torch, lanes_launch, reps)
-            fold_ms = cuda_ms(torch, fold_launch, reps)
+            lanes_ms, fold_ms, bounds = {}, {}, {}
+            for layout, name in layouts:
+                work, out = works[name], outs[name]
+                mism.update({"fold": fold_known_answer(torch, lib, consts, work, rng)})
+                lanes_ms[name] = cuda_ms(torch, lambda: cuda_rlc.launch_lanes(
+                    lib, dev, consts, out.data_ptr(), work, stream), reps)
+                fold_ms[name] = cuda_ms(torch, lambda: cuda_rlc.launch_fold(
+                    lib, consts, out.data_ptr() + n, work, stream), reps)
+                bounds[name] = rlc_bounds(n, work.nparts)
+            # the fold's alternative: one block of 32 quads, each adding
+            # its share of the partials in a row
+            whole = works["whole"]
+            one_block_ms = cuda_ms(torch, lambda: check(lib.ed25519_rlc_fold_launch(
+                whole.partials, whole.nparts, consts.data_ptr(), whole.level2, whole.ticket,
+                outs["whole"].data_ptr() + n, 1, 4 * cuda_rlc.FOLD_MAX_QUADS, stream) == 0,
+                "one-block fold launch"), reps)
             k1_ms = cuda_ms(torch, lambda: cuda_verify.verify_packed(k1_dev), reps)
-            fold_plain_ms = cuda_ms(
-                torch, lambda: agg.is_identity(agg.tree_reduce_points(partials.to(torch.int64))), 1)
-            bounds = rlc_bounds(n, blocks)
-            for name, ms, pms in (("ed25519_rlc_lanes", lanes_ms, plain_ms),
-                                  ("ed25519_rlc_fold", fold_ms, fold_plain_ms)):
-                bms, by = bounds[name]
-                by_lanes[name][n] = {"ms": ms, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
-                                     "verify_kernel_ms": k1_ms}
-            log(f"rlc kernels {n:6d} lanes: lanes {lanes_ms:.3f} ms (bound "
-                f"{bounds['ed25519_rlc_lanes'][0]:.3f}, {bounds['ed25519_rlc_lanes'][1]}) + fold "
-                f"{fold_ms:.3f} ms ({blocks} partials) = {lanes_ms + fold_ms:.3f} ms against the verify "
-                f"kernel's {k1_ms:.3f} ms on the same rows: RLC/per-sig {(lanes_ms + fold_ms) / k1_ms:.2f}x")
+            fold_plain_ms = cuda_ms(torch, lambda: agg.is_identity(
+                agg.tree_reduce_points(works[cuda_rlc.LAYOUT_NAMES[chosen]].points().to(torch.int64))), 1)
+            c = cuda_rlc.LAYOUT_NAMES[chosen]
+            split_ops_ms = 1e3 * n * cuda_rlc.INT32_MULADD_SLOTS_PER_LANE[cuda_rlc.SPLIT] / H100_INT32_MULADD_PER_S
+            for kname, ms, pms in (("ed25519_rlc_lanes", lanes_ms, plain_ms),
+                                   ("ed25519_rlc_fold", fold_ms, fold_plain_ms)):
+                bms, by = bounds[c][kname]
+                by_lanes[kname][n] = {
+                    "layout": c, "ms": ms[c], "plain_ms": pms, "bound_ms": bms, "bound_by": by,
+                    "verify_kernel_ms": k1_ms,
+                    "by_layout": {name: {"ms": ms[name], "bound_ms": bounds[name][kname][0],
+                                         "partials": works[name].nparts} for _, name in layouts},
+                }
+            by_lanes["ed25519_rlc_lanes"][n]["split_work_ms"] = split_ops_ms
+            by_lanes["ed25519_rlc_fold"][n]["one_block_ms"] = one_block_ms
+            log(f"rlc kernels {n:6d} lanes: lanes whole {lanes_ms['whole']:.3f} ms, split "
+                f"{lanes_ms['split']:.3f} ms (bound {bounds[c]['ed25519_rlc_lanes'][0]:.3f}, "
+                f"{bounds[c]['ed25519_rlc_lanes'][1]}; the split layout's own work "
+                f"{split_ops_ms:.3f}); fold {fold_ms['whole']:.3f} / {fold_ms['split']:.3f} ms over "
+                f"{whole.nparts} / {works['split'].nparts} partials (one block: {one_block_ms:.3f}); "
+                f"{c} {lanes_ms[c] + fold_ms[c]:.3f} ms against the verify kernel's {k1_ms:.3f} ms on "
+                f"the same rows: RLC/per-sig {(lanes_ms[c] + fold_ms[c]) / k1_ms:.2f}x")
     check(sum(mism.values()) == 0, f"RLC kernels, plain version, verify kernel and expected results "
           f"differ: {dict(mism)}")
     # the lanes kernel answers for the codes and the composed verdicts, the
     # fold for eq_ok
-    return {"by_lanes": by_lanes, "max_abs_err": max_err,
+    return {"by_lanes": by_lanes, "max_abs_err": max_err, "split_wave_lanes": wave,
+            "blocks_per_sm": per_sm,
             "mismatches": {"ed25519_rlc_lanes": mism["lanes"] + mism["composed"],
                            "ed25519_rlc_fold": mism["fold"]}}
 
@@ -658,6 +727,7 @@ def certificate(torch, mat: Material, rng, by_lanes: dict) -> dict:
     pk, msg, sig = cert[j]
     bad = cert[:j] + [(pk, msg, sig[:40] + bytes([sig[40] ^ 2]) + sig[41:])] + cert[j + 1:]
     cuda_rlc.launches = cuda_rlc.fold_launches = 0
+    cuda_rlc.layout_launches = [0, 0]
     for name, items in (("clean", cert), ("tampered", bad)):
         cols = [list(x) for x in zip(*items)]
         one = agg.aggregate_verify(*cols)
@@ -668,6 +738,10 @@ def certificate(torch, mat: Material, rng, by_lanes: dict) -> dict:
               f"certificate ({name}): verify_certificate differs from the verify kernel")
     launches = (cuda_rlc.launches, cuda_rlc.fold_launches)
     check(launches == (2, 2), f"certificate: RLC kernel launches {launches}, expected (2, 2)")
+    layout = by_lanes["ed25519_rlc_lanes"][CERT_N]["layout"]
+    by_layout = dict(zip(cuda_rlc.LAYOUT_NAMES, cuda_rlc.layout_launches))
+    check(by_layout[layout] == 2, f"certificate: lanes kernel launches by layout {by_layout}, "
+          f"expected 2 in the {layout} layout")
     cols = [list(x) for x in zip(*cert)]
 
     def host_ms(fn, reps=20):
@@ -686,6 +760,7 @@ def certificate(torch, mat: Material, rng, by_lanes: dict) -> dict:
         f"False); whole call {agg_ms:.3f} ms median against verify_batch's {per_sig_ms:.3f} ms; on the "
         f"card the RLC kernels take {device_ms:.3f} ms against the verify kernel's {k1_ms:.3f} ms at 64 lanes")
     return {"n": CERT_N, "launches": {"ed25519_rlc_lanes": launches[0], "ed25519_rlc_fold": launches[1]},
+            "lanes_launches_by_layout": by_layout,
             "aggregate_verify_ms": agg_ms, "verify_batch_ms": per_sig_ms,
             "rlc_device_ms": device_ms, "verify_kernel_ms": k1_ms}
 
@@ -1889,6 +1964,24 @@ def main() -> None:
     # the RLC kernels' main path: phase 7's node net (the processes' counts)
     rlc_launches = sum(r["rlc_launches"] for r in rlc_nodes.values())
     check(rlc_launches > 0, "phase 7 ran without launching the RLC kernels")
+    # the lanes kernel's layouts: threads a lane and ptxas figures of each
+    # instantiation; the top-level figures are those of the layout the
+    # 65,536 bucket takes, the main path's bucket (256) takes its own
+    from at2_node_tpu_torch.ops import cuda_rlc
+
+    names = cuda_rlc.LAYOUT_NAMES
+    top_layout = rlc["by_lanes"]["ed25519_rlc_lanes"][65536]["layout"]
+    main_layout = rlc["by_lanes"]["ed25519_rlc_lanes"][256]["layout"]
+    layout_fields = {
+        "ed25519_rlc_lanes": {
+            "layout": top_layout, "main_path_lanes": 256, "main_path_layout": main_layout,
+            "split_wave_lanes": rlc["split_wave_lanes"], "blocks_per_sm": rlc["blocks_per_sm"],
+            "threads_per_lane": dict(zip(names, cuda_rlc.THREADS_PER_LANE)),
+            **ptxas[f"ed25519_rlc_lanes[{top_layout}]"],
+            "ptxas_by_layout": {x: ptxas[f"ed25519_rlc_lanes[{x}]"] for x in names},
+        },
+        "ed25519_rlc_fold": {"threads_per_point": 4, **ptxas["ed25519_rlc_fold"]},
+    }
     for name, replaces in (("ed25519_rlc_lanes", "at2_node_tpu/ops/aggregate.py:287"),
                            ("ed25519_rlc_fold", "at2_node_tpu/ops/aggregate.py:325")):
         top = rlc["by_lanes"][name][65536]
@@ -1906,8 +1999,7 @@ def main() -> None:
             "bound_ms": top["bound_ms"],
             "bound_by": top["bound_by"],
             "library_ms": None,
-            "threads_per_lane": cuda_verify.THREADS_PER_SIGNATURE,
-            **ptxas[name],
+            **layout_fields[name],
             "by_lanes": {str(n): r for n, r in rlc["by_lanes"][name].items()},
             "main_path": {**rlc_nodes, "certificate": cert},
             "card": card,

@@ -365,6 +365,43 @@ def test_rlc_packed_wrapper_on_the_cpu():
             cuda_rlc.rlc_packed(bad)
 
 
+@pytest.mark.parametrize("wave", [264 * 8, 132 * 8, 8])
+def test_lanes_layout_choice_follows_one_wave(wave):
+    """choose_layout: the split layout exactly while a launch fits in one
+    wave of its resident blocks (``wave`` lanes), the whole layout past
+    it; monotone in n, so no size returns to the split layout."""
+    sizes = sorted({1, 7, 8, 9, 64, 77, 256, 1000, 1024, 4096, 8192, 65536,
+                    wave - 1, wave, wave + 1} - {0})
+    layouts = [cuda_rlc.choose_layout(n, wave) for n in sizes]
+    for n, layout in zip(sizes, layouts):
+        assert layout == (cuda_rlc.SPLIT if n <= wave else cuda_rlc.WHOLE)
+        if layout == cuda_rlc.SPLIT:
+            assert cuda_rlc.partials_for(n, layout) * cuda_rlc.LANES_PER_BLOCK[layout] <= wave
+    assert layouts == sorted(layouts, reverse=True)  # SPLIT (1) before WHOLE (0), never back
+
+
+@pytest.mark.parametrize("layout", [cuda_rlc.WHOLE, cuda_rlc.SPLIT], ids=["whole", "split"])
+def test_fold_grid_keeps_the_chain_short(layout):
+    """fold_grid: blocks of 32-128 threads (a power of two), every point in
+    one block's share, at most 4 points a quad at each level up to 16,384
+    partials, and one level up to 128; the scratch holds the partials, the
+    blocks' points and the ticket."""
+    for n in (1, 8, 9, 64, 77, 256, 1000, 1024, 4096, 8192, 65536, 262144):
+        nparts = cuda_rlc.partials_for(n, layout)
+        blocks, threads = cuda_rlc.fold_grid(nparts)
+        quads = threads // 4
+        assert 32 <= threads <= 4 * cuda_rlc.FOLD_MAX_QUADS and threads & (threads - 1) == 0
+        share = -(-nparts // blocks)
+        assert (blocks - 1) * share < nparts <= blocks * share  # no block without a point
+        assert -(-share // quads) <= cuda_rlc.FOLD_PER_QUAD
+        assert -(-blocks // quads) <= cuda_rlc.FOLD_PER_QUAD or nparts > 16384
+        assert (blocks == 1) == (nparts <= cuda_rlc.FOLD_MAX_QUADS * cuda_rlc.FOLD_PER_QUAD)
+        work = cuda_rlc.Scratch(n, layout, "cpu")
+        assert work.points().shape == (nparts, 4, 10)
+        assert work.ticket - work.partials == 4 * (nparts + blocks) * 40
+        assert work.words.numel() == (nparts + blocks) * 40 + 1
+
+
 def test_stages_on_the_cpu_give_the_staging_buffer_back_after_finish():
     rng = np.random.default_rng(46)
     items = _signed(rng, 3, b"stages")

@@ -67,7 +67,8 @@ def _lane_lib():
     lib.ed25519_lane_recode.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]
     lib.ed25519_lane_recode.restype = None
     lib.ed25519_lane_rlc_rows.argtypes = [
-        ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_void_p,
     ]
     lib.ed25519_lane_rlc_rows.restype = None
     return lib
@@ -329,22 +330,26 @@ def _rlc_rows(items, bucket):
     return agg.rlc_prep(*[list(x) for x in zip(*items)], bucket, _z_override=z).numpy().copy()
 
 
-def _host_rlc(lib, rows):
+def _host_rlc(lib, rows, layout=cuda_rlc.WHOLE):
+    """(codes, residual parts (n, 2, 4, 10)) of the host quad in `layout`:
+    a lane's residual is the sum of its two parts."""
     codes = np.zeros(len(rows), dtype=np.uint8)
-    residuals = np.zeros((len(rows), 4, fe.N_LIMBS), dtype=np.int32)
+    parts = np.zeros((len(rows), 2, 4, fe.N_LIMBS), dtype=np.int32)
     consts = cuda_verify.lane_consts()  # held: ctypes takes only its address
-    lib.ed25519_lane_rlc_rows(rows.ctypes.data, len(rows), consts.ctypes.data,
-                              codes.ctypes.data, residuals.ctypes.data)
-    return codes, residuals
+    lib.ed25519_lane_rlc_rows(rows.ctypes.data, len(rows), consts.ctypes.data, layout,
+                              codes.ctypes.data, parts.ctypes.data)
+    return codes, parts
 
 
-def test_rlc_lane_codes_and_residuals_match_plain_version(lane_lib):
-    """The host quad's RLC lane gives the plain version's codes on 20 lanes
-    of every tamper kind and both torsion kinds, two padding lanes among
-    them, and its residual [z]R + [zh]A - [zs]B (unmasked) equals the plain
+@pytest.mark.parametrize("layout", [cuda_rlc.WHOLE, cuda_rlc.SPLIT], ids=["whole", "split"])
+def test_rlc_lane_codes_and_residuals_match_plain_version(lane_lib, layout):
+    """The host quad's RLC lane, in either layout of the lanes kernel, gives
+    the plain version's codes on 20 lanes of every tamper kind and both
+    torsion kinds, two padding lanes among them, and the sum of its two
+    residual parts [z]R + [zh]A - [zs]B (unmasked) equals the plain
     rlc_residuals after canonical reduction on every lane."""
     rows = _rlc_rows(_rlc_lanes(), 22)
-    codes, residuals = _host_rlc(lane_lib, rows)
+    codes, parts = _host_rlc(lane_lib, rows, layout)
     t = torch.from_numpy(rows)
     _, plain_codes = agg.rlc_graph_packed_plain(t)
     assert codes.tolist() == plain_codes.tolist()
@@ -354,6 +359,8 @@ def test_rlc_lane_codes_and_residuals_match_plain_version(lane_lib):
     r_point, _ = ed.decompress(t[:, 32:64])
     w = [v.windows_msb_first(t[:, o:o + 32]) for o in (64, 96, 128)]
     plain = agg.rlc_residuals(r_point, a_point, *w).numpy()
+    p = torch.from_numpy(parts.astype(np.int64))
+    residuals = ed.add(p[:, 0], p[:, 1]).numpy()
     assert [ed.point_to_ints(x) for x in residuals] == [ed.point_to_ints(x) for x in plain]
     # a valid signature's residual is the identity, a tampered one's is not
     ok = np.unpackbits(v.verify_packed(torch.from_numpy(_rows(ITEMS[:16]))).numpy(), count=16)
@@ -361,27 +368,53 @@ def test_rlc_lane_codes_and_residuals_match_plain_version(lane_lib):
         assert (ed.point_to_ints(residuals[i]) == (0, 1)) == bool(ok[i]) or codes[i] != 1
 
 
-def test_rlc_operation_counts_follow_the_kernel(lane_lib):
+def test_split_residual_takes_every_window_of_a_long_z(lane_lib):
+    """[z]R of the split layout is exact for a z of 256 bits too (rlc_prep
+    packs z below 2^128, so the kernel runs 32 windows; a longer z takes
+    all 64): its two parts sum to the plain residual."""
+    rows = _rlc_rows(ITEMS[:2], 2)
+    rows[:, 64:96] = np.frombuffer(RNG.bytes(64), dtype=np.uint8).reshape(2, 32)
+    rows[0, 95] &= 0x0F  # below 2^252: a zero carry out of the top digit
+    rows[1, 95] |= 0xF0  # above 2^255: the carry is 1
+    t = torch.from_numpy(rows)
+    _, parts = _host_rlc(lane_lib, rows, cuda_rlc.SPLIT)
+    a_point, _ = ed.decompress(t[:, :32])
+    r_point, _ = ed.decompress(t[:, 32:64])
+    w = [v.windows_msb_first(t[:, o:o + 32]) for o in (64, 96, 128)]
+    plain = agg.rlc_residuals(r_point, a_point, *w).numpy()
+    p = torch.from_numpy(parts.astype(np.int64))
+    got = ed.add(p[:, 0], p[:, 1]).numpy()
+    assert [ed.point_to_ints(x) for x in got] == [ed.point_to_ints(x) for x in plain]
+
+
+@pytest.mark.parametrize("layout, muls, squares", [
+    (cuda_rlc.WHOLE, 8534, 3582), (cuda_rlc.SPLIT, 9302, 4094),
+], ids=["whole", "split"])
+def test_rlc_operation_counts_follow_the_kernel(lane_lib, layout, muls, squares):
     """The field multiplications, squarings and products one RLC lane uses
-    in the kernel, as the g++ build counts them, are the constants the
-    bound charges."""
+    in each layout of the lanes kernel, as the g++ build counts them, are
+    the constants the bound charges. The split layout's [z]R takes 128
+    doublings of its own and skips z's 32 zero windows: 768 more."""
     rows = _rlc_rows(ITEMS[:1], 1)
     _take_counts(lane_lib)
-    _host_rlc(lane_lib, rows)
-    muls, squares, products = _take_counts(lane_lib)
-    assert muls == cuda_rlc.FIELD_MULS_PER_LANE == 8534
-    assert squares == cuda_rlc.FIELD_SQUARES_PER_LANE == 3582
-    assert 2 * products == cuda_rlc.INT32_MULADD_SLOTS_PER_LANE
+    _host_rlc(lane_lib, rows, layout)
+    got_muls, got_squares, products = _take_counts(lane_lib)
+    assert got_muls == cuda_rlc.FIELD_MULS_PER_LANE[layout] == muls
+    assert got_squares == cuda_rlc.FIELD_SQUARES_PER_LANE[layout] == squares
+    assert 2 * products == cuda_rlc.INT32_MULADD_SLOTS_PER_LANE[layout]
 
 
-def test_l_digits_and_the_torsion_check(lane_lib):
-    """[L] of the kernel's Horner: a lane whose R is a pure 8-torsion point
-    (order 8, so [L]R = [5]R is not the identity) gets code 0, and one whose
-    R is the identity encoding (torsion-free) does not."""
+@pytest.mark.parametrize("layout", [cuda_rlc.WHOLE, cuda_rlc.SPLIT], ids=["whole", "split"])
+def test_l_digits_and_the_torsion_check(lane_lib, layout):
+    """[L] of the kernel's Horner, in either layout: a lane whose R is a
+    pure 8-torsion point (order 8, so [L]R = [5]R is not the identity) gets
+    code 0, and one whose R is the identity encoding (torsion-free) does
+    not; the same torsion point as A gets code 2."""
     t = _torsion_point()
     base = ITEMS[0]
     r_torsion = fb._pt_compress(t) + base[2][32:]
     r_ident = (1).to_bytes(32, "little") + base[2][32:]
-    rows = _rlc_rows([(base[0], base[1], r_torsion), (base[0], base[1], r_ident)], 2)
-    codes, _ = _host_rlc(lane_lib, rows)
-    assert codes.tolist() == [0, 1]
+    lanes = [(base[0], base[1], r_torsion), (base[0], base[1], r_ident),
+             (fb._pt_compress(t), base[1], base[2])]
+    codes, _ = _host_rlc(lane_lib, _rlc_rows(lanes, 3), layout)
+    assert codes.tolist() == [0, 1, 2]

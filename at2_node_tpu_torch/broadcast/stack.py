@@ -90,12 +90,11 @@ import asyncio
 import itertools
 import logging
 from collections import defaultdict
-from typing import Dict, Optional, Set, Tuple
+from typing import TYPE_CHECKING, Dict, Optional, Set, Tuple
 
 import numpy as np
 
 from ..crypto.keys import SignKeyPair
-from ..crypto.verifier import Verifier
 from ..net.peers import Mesh, Peer
 from .messages import (
     BATCH,
@@ -122,6 +121,9 @@ from .messages import (
     WireError,
     parse_frame,
 )
+
+if TYPE_CHECKING:  # the verifier module imports torch; a plane worker must not
+    from ..crypto.verifier import Verifier
 
 # Catchup-plane messages are control traffic for the node service (ledger
 # history catchup, ledger/history.py) — the broadcast stack just routes
@@ -1955,9 +1957,10 @@ class Broadcast:
     def export_watermarks(self) -> dict:
         """Per-origin max-attested slots, both planes — persisted in the
         store manifest on every flush."""
+        # list() copies in one step: a thread shard may add keys meanwhile
         return {
-            "tx": {k.hex(): v for k, v in self._wm_tx.items()},
-            "batch": {k.hex(): v for k, v in self._wm_batch.items()},
+            "tx": {k.hex(): v for k, v in list(self._wm_tx.items())},
+            "batch": {k.hex(): v for k, v in list(self._wm_batch.items())},
         }
 
     def restore_watermarks(self, doc: dict) -> None:

@@ -20,9 +20,9 @@ Exports:
   plane's endorsement tallies.
 * :func:`distill_parse_native` — the node's distilled-frame parser
   (``proto/distill.py`` format), one GIL-released call per frame.
-
-The source also holds the fused owner drain (``at2_plane_drain``); its
-binding comes with its consumer, the plane shards (ROADMAP.md item 7c).
+* :func:`plane_drain_native` — the sharded plane's fused owner drain
+  (``at2_plane_drain``): parse a chunk and route every message to its
+  owning shard in one GIL-released call.
 """
 
 from __future__ import annotations
@@ -72,6 +72,7 @@ from ..broadcast.messages import (
 from ._build import U32P, U64P, U8P, load_gxx_lib, pack_ragged, ptr8
 
 _I32P = ctypes.POINTER(ctypes.c_int32)
+_I64P = ctypes.POINTER(ctypes.c_int64)
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -106,6 +107,11 @@ def _load() -> Optional[ctypes.CDLL]:
             U8P, U64P, ctypes.c_int64, U8P, ctypes.c_int64, U32P, U8P,
         ]
         lib.at2_parse_frames.restype = ctypes.c_int64
+        lib.at2_plane_drain.argtypes = [
+            U8P, U64P, ctypes.c_int64, ctypes.c_int64, U8P, ctypes.c_int64,
+            U32P, U8P, U32P, _I64P,
+        ]
+        lib.at2_plane_drain.restype = ctypes.c_int64
         lib.at2_verify_bulk.argtypes = [
             U8P, U64P, U8P, U64P, U8P, U64P,
             ctypes.c_int64, ctypes.c_int64, U8P,
@@ -283,6 +289,104 @@ def _build_rows(rows, msg_frame, flat, n: int, stride: int):
         else:  # pragma: no cover - the C side never emits other kinds
             continue
         yield i, frame_idx[i], msg
+
+
+# fixed-wire kinds whose full body lives in the parse row (everything
+# else stores (offset, length) into the flat frame buffer)
+_FIXED_BODY_LEN = {
+    GOSSIP: 140,
+    ECHO: 164,
+    READY: 164,
+    REQUEST: 68,
+    HIST_IDX_REQ: 8,
+    HIST_REQ: 48,
+    BATCH_REQ: 72,
+}
+
+
+def plane_drain_ready() -> bool:
+    """Hot-path probe for the fused owner drain (parse + shard routing
+    in one GIL-released call). Separate kill-switch from the rest of the
+    native ingest so the phase-accounting A/B (a plane benchmark's
+    drain comparison) can isolate exactly this fusion."""
+    if os.environ.get("AT2_NO_PLANE_DRAIN"):
+        return False
+    return ingest_ready_or_kick()
+
+
+def plane_drain_native(frames: Sequence[bytes], shards: int,
+                       want_objects: bool = True):
+    """Parse a whole drain chunk AND route every message to its owning
+    shard in ONE native call (at2_plane_drain).
+
+    Returns ``(items, frame_ok, shard_counts)``:
+
+    * ``want_objects=True`` (thread/inline planes): items are
+      ``(frame_index, shard_id, message_object)`` — what
+      ``parse_frames_native`` returns plus the routing the owner loop
+      would otherwise derive per message with an isinstance chain.
+    * ``want_objects=False`` (process plane): items are
+      ``(frame_index, shard_id, kind, wire_bytes)`` where wire_bytes is
+      the single-message frame to forward into the shard's actions
+      ring — NO Python message objects are built for slot-bound kinds;
+      the owning worker parses its own copy.
+
+    ``shard_counts`` is the per-shard routed-row tally (int64 ndarray),
+    rollback-corrected for malformed frames."""
+    lib = _load()
+    assert lib is not None, "call ingest_available() first"
+    flat, offsets = pack_ragged(frames)
+    stride = int(lib.at2_ingest_row_stride())
+    per_frame_bound = len(frames) * MAX_MSGS_PER_FRAME
+    for min_wire in (69, int(lib.at2_ingest_min_wire())):
+        cap = min(int(flat.size // min_wire), per_frame_bound) + len(frames) + 1
+        rows = np.zeros((cap, stride), dtype=np.uint8)
+        msg_frame = np.zeros(cap, dtype=np.uint32)
+        frame_ok = np.zeros(len(frames), dtype=np.uint8)
+        shard_ids = np.zeros(cap, dtype=np.uint32)
+        shard_counts = np.zeros(shards, dtype=np.int64)
+        n = int(
+            lib.at2_plane_drain(
+                ptr8(flat),
+                offsets.ctypes.data_as(U64P),
+                len(frames),
+                shards,
+                ptr8(rows),
+                cap,
+                msg_frame.ctypes.data_as(U32P),
+                ptr8(frame_ok),
+                shard_ids.ctypes.data_as(U32P),
+                shard_counts.ctypes.data_as(_I64P),
+            )
+        )
+        if n >= 0:
+            break
+    if n < 0:  # cannot happen given the final bound; survive `python -O`
+        raise RuntimeError("native plane drain overflowed its row capacity")
+
+    sids = shard_ids[:n].tolist()
+    if want_objects:
+        items = [
+            (fidx, sids[i], msg)
+            for i, fidx, msg in _build_rows(rows, msg_frame, flat, n, stride)
+        ]
+        return items, frame_ok.astype(bool), shard_counts
+
+    row_bytes = rows[:n].tobytes()
+    frame_idx = msg_frame[:n].tolist()
+    items = []
+    for i in range(n):
+        base = i * stride
+        kind = row_bytes[base]
+        blen = _FIXED_BODY_LEN.get(kind)
+        if blen is not None:
+            wire = row_bytes[base : base + 1 + blen]
+        else:
+            off = int.from_bytes(row_bytes[base + 1 : base + 9], "little")
+            ln = int.from_bytes(row_bytes[base + 9 : base + 17], "little")
+            wire = bytes([kind]) + flat[off : off + ln].tobytes()
+        items.append((frame_idx[i], sids[i], kind, wire))
+    return items, frame_ok.astype(bool), shard_counts
 
 
 def distill_parse_native(

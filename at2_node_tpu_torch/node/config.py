@@ -241,7 +241,7 @@ class CheckpointConfig:
 
 @dataclass
 class StoreConfig:
-    """Durable sharded store (not ported yet: ROADMAP.md item 7c): per-account-range
+    """Durable sharded store (store/): per-account-range
     segment files + a write-ahead delta log of committed slots, committed
     atomically by a manifest rename. Supersedes the monolithic
     ``[checkpoint]`` snapshot (still honored: when only ``[checkpoint]``
@@ -402,8 +402,8 @@ class PlaneConfig:
 
     ``ring_slots`` / ``ring_slot_bytes`` size the per-shard
     shared-memory rings process mode uses (parallel/ring.py): each of
-    the two rings per shard is ``ring_slots * ring_slot_bytes`` of
-    /dev/shm. A record that does not fit is DROPPED with producer-side
+    the three rings per shard (actions, effects, obs) is ``ring_slots *
+    ring_slot_bytes`` of /dev/shm. A record that does not fit is DROPPED with producer-side
     accounting (``plane_shard_effects_dropped`` on /metrics), so
     undersizing degrades visibly rather than blocking the plane. The
     defaults (4096 x 1 KiB = 4 MiB per direction per shard) hold ~20 ms

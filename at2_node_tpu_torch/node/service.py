@@ -23,13 +23,17 @@ Delivery→commit loop parity (`rpc.rs:149-211`):
   (`rpc.rs:183-193`), and that observable quirk is kept deliberately;
 * leftovers carry into the next delivery batch (`rpc.rs:207`).
 
-Subsystems of the reference node that are not ported yet (ROADMAP.md,
-queue 1, item 7c) are left out, and :meth:`Service.start` refuses a
-config that turns one on: ``[plane] shards > 1`` (the sharded plane),
-``[store] dir`` (the durable sharded store) and ``[finality] enabled``
-(finality certificates). Their code comes with their modules. With
-``[verifier] kind = "cuda"`` every client, payload, Echo and Ready
-signature goes through the hand-written kernel on the card.
+``[plane] shards > 1`` runs the sharded broadcast plane
+(broadcast/shards.py) under the ``inline``, ``thread`` or ``process``
+executor, and ``[store] dir`` the durable sharded store (store/), as in
+the reference. The one subsystem of the reference node not ported yet,
+finality certificates, is left out, and :meth:`Service.start` refuses
+``[finality] enabled`` (ROADMAP.md, queue 1, item 7c). With ``[verifier]
+kind = "cuda"`` every client signature goes through the hand-written
+kernel on the card, and so does every payload, Echo and Ready signature
+under the monolithic plane and the ``inline`` and ``thread`` executors;
+a ``process`` shard verifies its plane signatures on the host, in its
+own worker process, as the reference's does.
 """
 
 from __future__ import annotations
@@ -86,7 +90,7 @@ from ..types import (
     TransactionState,
     rfc3339,
 )
-from ..store import RecoveryProgress
+from ..store import RecoveryProgress, ShardedStore
 from .config import Config
 from .directory import ClientDirectory, DirectoryFullError
 from .membership import MembershipManager
@@ -133,10 +137,6 @@ DISTILL_SEEN_CAP = 1 << 16
 # config switches whose subsystem is not ported yet: (what turns it on,
 # the reference modules it needs), in ROADMAP.md item 7c's order
 _DEFERRED = (
-    (lambda c: c.plane.shards > 1, "[plane] shards > 1",
-     "broadcast/shards.py, parallel/plane.py, plane_worker.py, ring.py"),
-    (lambda c: bool(c.store.dir), "[store] dir",
-     "store/sharded.py, wal.py, segments.py, manifest.py"),
     (lambda c: c.finality.enabled, "[finality] enabled", "finality/"),
 )
 
@@ -359,6 +359,11 @@ class Service(At2Servicer):
             "overload ladder position (0 normal .. 3 saturated)",
             fn=lambda: float(self.overload.level),
         )
+        # durable sharded store (store/sharded.py): None when [store] dir
+        # is unset — the node then falls back to the legacy monolithic
+        # checkpoint (ledger/checkpoint.py), exactly as before
+        self.store: Optional[ShardedStore] = None
+        self._store_task: Optional[asyncio.Task] = None
         # recovery state machine (store/recovery.py): starts "cold"; a
         # store-backed restart walks loading_segments -> replaying_wal ->
         # catchup -> live and /healthz reports "recovering" on the way
@@ -493,14 +498,13 @@ class Service(At2Servicer):
             "rpc_",
             lambda: self._mux.stats() if self._mux is not None else {},
         )
+        self.registry.register_provider("store_", self._store_stats_view)
         self.registry.register_provider(
             "membership_",
             lambda: (
                 self.membership.stats() if self.membership is not None else {}
             ),
         )
-        # the sharded store's counters (ROADMAP.md item 7c), 0 until it is
-        # ported: kept so /metrics carries the reference's key set
         self.store_stats = self.registry.counter_group(
             ("store_flushes", "store_segments_written", "store_segment_bytes")
         )
@@ -533,8 +537,8 @@ class Service(At2Servicer):
         # assembler collects kind-16 co-signatures into quorum certs.
         # None when the table is absent/disabled — the subsystem is
         # fully inert and the wire schedule stays byte-identical.
-        # Not ported yet (ROADMAP.md item 7c): start() refuses
-        # [finality] enabled, so the assembler stays None here.
+        # Not ported yet (ROADMAP.md, queue 1, item 7c.3): start()
+        # refuses [finality] enabled, so the assembler stays None here.
         self.certs = None
 
     # -- lifecycle --------------------------------------------------------
@@ -606,22 +610,59 @@ class Service(At2Servicer):
                     region=config.wan.region,
                     capture_cap=config.observability.capture_cap,
                 )
-            # ([plane] shards > 1 was refused above: ROADMAP.md item 7c)
-            service.broadcast = Broadcast(
-                config.sign_key,
-                service.mesh,
-                service.verifier,
-                echo_threshold=config.echo_threshold,
-                ready_threshold=config.ready_threshold,
-                registry=service.registry,
-                trace=service.tx_trace,
-                recorder=(
-                    service.recorder if service.recorder.enabled else None
-                ),
-                clock=service.clock,
-                phases=service.phases,
-                overlap_ready=config.wan.overlap_ready,
-            )
+            plane_cfg = config.plane
+            if plane_cfg.shards > 1:
+                # sharded broadcast plane (broadcast/shards.py). Under a
+                # non-system clock the executor is forced inline: the sim
+                # owns the schedule and shard threads/processes would
+                # race it — inline keeps shards=N byte-identical on the
+                # wire regardless of the configured executor (the CI
+                # campaign-hash sweep pins this across all three).
+                from ..broadcast.shards import ShardedPlane
+                from ..clock import SYSTEM_CLOCK
+
+                executor = plane_cfg.executor
+                if service.clock is not SYSTEM_CLOCK:
+                    executor = "inline"
+                service.broadcast = ShardedPlane(
+                    config.sign_key,
+                    service.mesh,
+                    service.verifier,
+                    shards=plane_cfg.shards,
+                    executor=executor,
+                    workers=plane_cfg.workers,
+                    ring_slots=plane_cfg.ring_slots,
+                    ring_slot_bytes=plane_cfg.ring_slot_bytes,
+                    echo_threshold=config.echo_threshold,
+                    ready_threshold=config.ready_threshold,
+                    registry=service.registry,
+                    trace=service.tx_trace,
+                    recorder=(
+                        service.recorder if service.recorder.enabled else None
+                    ),
+                    clock=service.clock,
+                    phases=service.phases,
+                    overlap_ready=config.wan.overlap_ready,
+                    worker_profiler=config.observability.profilez,
+                    profiler_hz=config.observability.profiler_hz,
+                    profiler_max_nodes=config.observability.profiler_max_nodes,
+                )
+            else:
+                service.broadcast = Broadcast(
+                    config.sign_key,
+                    service.mesh,
+                    service.verifier,
+                    echo_threshold=config.echo_threshold,
+                    ready_threshold=config.ready_threshold,
+                    registry=service.registry,
+                    trace=service.tx_trace,
+                    recorder=(
+                        service.recorder if service.recorder.enabled else None
+                    ),
+                    clock=service.clock,
+                    phases=service.phases,
+                    overlap_ready=config.wan.overlap_ready,
+                )
             # flight-record the verifier's flush decisions too (duck-typed
             # attach; a SHARED verifier keeps its first owner's recorder)
             if (
@@ -640,13 +681,18 @@ class Service(At2Servicer):
             service.broadcast.directory_handler = service._on_directory
             service.broadcast.beacon_handler = service._on_beacon
             service.broadcast.cert_handler = service._on_cert_sig
+            if service.store is not None:
+                # broadcast-safety floors: the slots this node attested
+                # before the crash are fenced — a restarted node never
+                # signs a conflicting echo/ready for them
+                service.broadcast.restore_watermarks(service.store.watermarks)
             mcfg = config.membership
             if mcfg.admin_public:
                 service.membership = MembershipManager(
                     admin_public=bytes.fromhex(mcfg.admin_public),
                     clock=service.clock,
                     grace=mcfg.grace,
-                    epoch=0,
+                    epoch=service.store.epoch if service.store else 0,
                     mesh=service.mesh,
                     on_thresholds=service._on_thresholds,
                     own_sign_public=config.sign_key.public,
@@ -678,6 +724,17 @@ class Service(At2Servicer):
                 # disabled) store restart is as live as it will ever be
                 service.recovery.mark_live(service.clock.monotonic())
 
+            # incremental store flush loop (config [store] flush_interval).
+            # Like the SLO probe, only on SERVED nodes: the sim flushes
+            # and sweeps explicitly at deterministic points instead.
+            if (
+                serve_rpc
+                and service.store is not None
+                and config.store.flush_interval > 0
+            ):
+                service._store_task = asyncio.create_task(
+                    service._store_flush_loop(config.store.flush_interval)
+                )
             if serve_rpc and service.membership is not None:
                 service._membership_task = asyncio.create_task(
                     service._membership_loop()
@@ -685,8 +742,13 @@ class Service(At2Servicer):
 
             # interval <= 0 means snapshot-on-shutdown only (consistent with
             # the observability convention where 0 disables the periodic
-            # task).
-            if config.checkpoint.path and config.checkpoint.interval > 0:
+            # task). The legacy monolithic loop is superseded entirely by
+            # the sharded store when [store] dir is configured.
+            if (
+                service.store is None
+                and config.checkpoint.path
+                and config.checkpoint.interval > 0
+            ):
                 service._checkpoint_task = asyncio.create_task(
                     service._checkpoint_loop(
                         config.checkpoint.path, config.checkpoint.interval
@@ -801,6 +863,12 @@ class Service(At2Servicer):
                 await self._checkpoint_task
             except asyncio.CancelledError:
                 pass
+        if self._store_task is not None:
+            self._store_task.cancel()
+            try:
+                await self._store_task
+            except asyncio.CancelledError:
+                pass
         if self._membership_task is not None:
             self._membership_task.cancel()
             try:
@@ -858,7 +926,13 @@ class Service(At2Servicer):
             await self._drain_to_fixpoint()
         # Final snapshot LAST — ingress, delivery, and broadcast are all
         # stopped, so no commit can land after (and be missing from) it.
-        if self.config.checkpoint.path:
+        if self.store is not None:
+            try:
+                await self._store_flush()
+            except OSError:
+                logger.exception("final store flush failed")
+            self.store.close()
+        elif self.config.checkpoint.path:
             try:
                 await ckpt.save(
                     self.config.checkpoint.path,
@@ -879,13 +953,156 @@ class Service(At2Servicer):
             except OSError:
                 logger.exception("periodic checkpoint failed")
 
+    # -- durable sharded store (store/) ----------------------------------
+
     async def _restore_state(self) -> None:
-        """Resume ledger state at start from the ``[checkpoint]`` snapshot,
-        when one is configured. (The sharded store, ``[store] dir``, is
-        refused at start: ROADMAP.md item 7c.)"""
-        path = self.config.checkpoint.path
-        if path:
-            await ckpt.load(path, self.accounts, self.recent, self.directory)
+        """Resume ledger state at start. With [store] dir configured this
+        opens (or initializes) the sharded store — migrating a legacy
+        monolithic checkpoint one-shot if one exists and the store does
+        not yet — and walks the recovery machine through
+        loading_segments/replaying_wal; without it, the legacy full-
+        snapshot path loads exactly as before."""
+        scfg = self.config.store
+        ccfg = self.config.checkpoint
+        if not scfg.dir:
+            if ccfg.path:
+                await ckpt.load(
+                    ccfg.path, self.accounts, self.recent, self.directory
+                )
+            return
+        self.recovery.started_at = self.clock.monotonic()
+        legacy = None
+        if ccfg.path:
+            # parsed, not loaded: the store decides whether to migrate
+            # (only when no manifest exists yet)
+            try:
+                with open(ccfg.path) as fp:
+                    legacy = json.load(fp)
+            except FileNotFoundError:
+                legacy = None
+
+        def _on_segment(loaded: int, total: int) -> None:
+            self.recovery.advance("loading_segments")
+            self.recovery.segments_loaded = loaded
+            self.recovery.segments_total = total
+
+        def _on_wal_record(count: int) -> None:
+            self.recovery.advance("replaying_wal")
+            self.recovery.wal_records_replayed = count
+
+        self.recovery.advance("loading_segments")
+        store = ShardedStore.open(
+            scfg.dir,
+            n_shards=scfg.shards,
+            sync=scfg.sync,
+            history_cap=scfg.history_cap,
+            legacy_checkpoint=legacy,
+            on_segment=_on_segment,
+            on_wal_record=_on_wal_record,
+        )
+        self.store = store
+        self.recovery.segments_total = max(
+            self.recovery.segments_total, store.segments_loaded
+        )
+        self.recovery.wal_records_replayed = store.wal_replayed
+        self.recovery.migrated = store.migrated
+        self.recovery.epoch = store.epoch
+        await self.accounts.import_state(store.accounts_state())
+        await self.recent.import_state(store.recent_rows)
+        self.directory.import_(store.directory_rows)
+        # the additive digest lanes were reseeded by the imports above
+        # (Accounts.import_state / ClientDirectory.apply maintain them);
+        # resume the persisted local chain head with a restart marker
+        self.auditor.restore(store.audit)
+        if self.certs is not None:
+            # resume the persisted certificate chain (and any latched
+            # equivocation evidence) at the epoch the store reached
+            self.certs.restore(store.finality)
+            self.certs.epoch = store.epoch
+        # refill the catchup serving store from persisted history so a
+        # restarted node can serve peers (and the conservation invariant
+        # can replay) without waiting for new commits
+        for payload in store.iter_history():
+            self.history.record(payload)
+        # the distilled-batch dedup window survives restart (a replaying
+        # broker must not get a second pass at the broadcast plane just
+        # because this node bounced)
+        for row in store.distill_seen:
+            self._distill_seen[(int(row[0]), int(row[1]))] = None
+        # re-enqueue delivered-but-uncommitted payloads at the sequence
+        # gate: the broadcast never retransmits a delivered slot, and
+        # catchup can only confirm it while `quorum` full-history peers
+        # are alive — the parked set is this node's own durable copy.
+        # Fresh `now`: a restart grants the slot a new TTL window.
+        now = self.clock.monotonic()
+        restored_parked = 0
+        for payload in store.iter_parked():
+            if self._push_pending(payload, now):
+                restored_parked += 1
+        self.recovery.advance("catchup")
+        logger.info(
+            "store restored: gen=%d %d accounts, %d segments, "
+            "%d wal records, %d parked%s",
+            store.gen,
+            store.account_count(),
+            store.segments_loaded,
+            store.wal_replayed,
+            restored_parked,
+            " (migrated legacy checkpoint)" if store.migrated else "",
+        )
+
+    def _store_stats_view(self) -> dict:
+        if self.store is None:
+            return {}
+        return {
+            "gen": self.store.gen,
+            "accounts": self.store.account_count(),
+            "history": self.store.history_count(),
+            "parked": self.store.parked_count(),
+        }
+
+    async def _store_flush(self) -> None:
+        """One incremental flush: refresh the manifest's small state
+        (directory, recent ring, broadcast-safety watermarks, dedup
+        window, epoch), then write dirty shards + rotate the WAL.
+        Synchronous on the event loop by design — the mirror the flush
+        walks is mutated by the commit path on this same loop, so
+        off-thread flushing would race it; cost is bounded by the delta
+        since the last flush."""
+        if self.store is None:
+            return
+        watermarks = (
+            self.broadcast.export_watermarks()
+            if self.broadcast is not None
+            else None
+        )
+        seen = list(self._distill_seen)[-4096:]
+        self.store.set_meta(
+            directory_rows=self.directory.export(),
+            recent_rows=await self.recent.export_state(),
+            watermarks=watermarks,
+            distill_seen=[[cid, seq] for cid, seq in seen],
+            epoch=self.membership.epoch if self.membership else None,
+            audit=self.auditor.export(),
+            finality=(
+                self.certs.export() if self.certs is not None else None
+            ),
+        )
+        stats = self.store.flush()
+        if stats:
+            self.store_stats["store_flushes"] += 1
+            self.store_stats["store_segments_written"] += stats[
+                "segments_written"
+            ]
+            self.store_stats["store_segment_bytes"] += stats["segment_bytes"]
+
+    async def _store_flush_loop(self, interval: float) -> None:
+        while True:
+            await self.clock.sleep(interval)
+            try:
+                await self._store_flush()
+            except OSError:
+                logger.exception("store flush failed")
 
     # -- membership reconfiguration (node/membership.py) ------------------
 
@@ -927,6 +1144,8 @@ class Service(At2Servicer):
             # the new one, so the assembler drops them; the assembled
             # chain survives the transition
             self.certs.reconfigure(self.certs.members, self.membership.epoch)
+        if self.store is not None:
+            self.store.set_meta(epoch=self.membership.epoch)
         self.recorder.record("config_apply", (self.membership.epoch,))
         if self.mesh is not None and self.mesh.peers:
             self.mesh.broadcast(tx.encode())
@@ -1494,6 +1713,15 @@ class Service(At2Servicer):
         self._heap_keys.add(key)
         self._push_count += 1
         heapq.heappush(self._heap, (key, now, self._push_count, p))
+        if self.store is not None:
+            # a delivered payload is never retransmitted by the
+            # broadcast: losing the heap at a crash would strand slots
+            # whose full-history copies dip below the catchup quorum, so
+            # park it durably until it commits or times out
+            try:
+                self.store.note_parked(p)
+            except OSError:
+                logger.exception("store parked append failed")
         return True
 
     async def _delivery_loop(self) -> None:
@@ -1547,6 +1775,7 @@ class Service(At2Servicer):
                 retry: List[tuple] = []
                 ring_ops: List[tuple] = []
                 commits: List[tuple] = []
+                drops: List[Payload] = []  # gave up: unpark from the store
                 for key, added, tiebreak, payload in batch:
                     # An already-consumed sequence can never commit (the
                     # gate admits exactly last+1 and last only grows);
@@ -1575,6 +1804,7 @@ class Service(At2Servicer):
                                     payload.sequence,
                                 )
                             )
+                            drops.append(payload)
                             continue
                         if key not in catchup_keys:
                             # catchup-sourced payloads are quorum-
@@ -1610,6 +1840,7 @@ class Service(At2Servicer):
                         continue
                     except Exception as exc:
                         logger.warning("dropping bad payload: %s", exc)
+                        drops.append(payload)
                         continue
                     if self.ledger_failpoint is not None:
                         # sim-only corruption seam (sim/campaign.py
@@ -1632,12 +1863,29 @@ class Service(At2Servicer):
                             TransactionState.SUCCESS,
                         )
                     )
-                    commits.append((key, payload))
-                return retry, ring_ops, commits
+                    # POST-commit balances captured here, inside the
+                    # exclusive section, so the WAL record the store
+                    # appends is exactly the ledger state this transfer
+                    # left behind (a later read could see a newer value)
+                    s_bal = accounts._ledger[payload.sender].balance
+                    recipient = payload.transaction.recipient
+                    r_bal = (
+                        accounts._ledger[recipient].balance
+                        if recipient != payload.sender
+                        else None
+                    )
+                    commits.append((key, payload, s_bal, r_bal))
+                return retry, ring_ops, commits, drops
 
-            retry, ring_ops, commits = await self.accounts.run_exclusive(
+            retry, ring_ops, commits, drops = await self.accounts.run_exclusive(
                 _apply_pass
             )
+            if drops and self.store is not None:
+                for p in drops:
+                    try:
+                        self.store.note_unparked(p)
+                    except OSError:
+                        logger.exception("store unpark append failed")
             if commits or ring_ops:
                 # the accounts mutation already happened inside
                 # run_exclusive: a cancellation landing between it and the
@@ -1683,13 +1931,23 @@ class Service(At2Servicer):
         registry release, and the recent-ring flips."""
         ph = self.phases
         t0 = ph.t() if ph is not None else 0
-        for key, payload in commits:
+        for key, payload, s_bal, r_bal in commits:
             logger.info(
                 "new payload: seq=%d sender=%s",
                 payload.sequence,
                 payload.sender.hex()[:16],
             )
             self.committed += 1
+            if self.store is not None:
+                # WAL append first (durability), then the in-memory fold;
+                # a store I/O failure must not split a commit from its
+                # ring/history bookkeeping
+                try:
+                    self.store.note_commit(
+                        payload, payload.sequence, s_bal, r_bal
+                    )
+                except OSError:
+                    logger.exception("store wal append failed")
             self.tx_trace.stamp(
                 (payload.sender, payload.sequence), "committed"
             )

@@ -19,8 +19,9 @@ counters together. ``Broadcast`` creates a private registry when none is
 passed. ``CounterGroup`` keeps the ``stats["key"] += 1`` call-site surface
 of a stats dict while the storage lives on registry Counters.
 
-The cross-process delta export of a histogram (``raw`` /
-``merge_deltas``) comes with the process-mode plane shards.
+A histogram exports its increments across processes (``raw`` /
+``merge_deltas``): a process-mode plane shard ships the deltas of its
+own histograms, and the owner folds them into its registry.
 """
 
 from __future__ import annotations
@@ -205,6 +206,43 @@ class Histogram:
         """snapshot() splayed into ``{prefix}_{key}`` form for merging
         into flat stats dicts (registry snapshots, verifier.stats)."""
         return {f"{prefix}_{k}": v for k, v in self.snapshot().items()}
+
+    def raw(self) -> tuple[list[int], float, int, float]:
+        """Non-cumulative bucket counts + exact sum/count/max, copied
+        under the lock. The worker-side delta-export primitive: a
+        process-mode shard diffs two raw() readings to ship bucket-count
+        deltas to the owner."""
+        with self._lock:
+            return list(self._counts), self._sum, self._count, self._max
+
+    def merge_deltas(
+        self,
+        bucket_deltas: Sequence[int],
+        sum_delta: float,
+        count_delta: int,
+        max_value: float,
+    ) -> None:
+        """Fold another histogram's increments into this one: per-bucket
+        count deltas (same bounds ladder assumed), exact sum/count
+        deltas, and an ABSOLUTE max merged via max(). The owner-side
+        counterpart of ``raw()`` for cross-process folding."""
+        if count_delta <= 0 and not any(bucket_deltas):
+            if max_value > self._max:
+                with self._lock:
+                    if max_value > self._max:
+                        self._max = max_value
+            return
+        n = len(self._counts)
+        with self._lock:
+            for i, d in enumerate(bucket_deltas):
+                if i >= n:
+                    break
+                if d:
+                    self._counts[i] += d
+            self._sum += sum_delta
+            self._count += count_delta
+            if max_value > self._max:
+                self._max = max_value
 
     def buckets(self) -> tuple[list[tuple[float, int]], float, int]:
         """(cumulative (le, count) pairs incl +Inf, sum, count) — the

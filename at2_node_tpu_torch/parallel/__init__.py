@@ -1,10 +1,11 @@
 """Scale-out: the device pool (pool.py) and the multi-process runtime
-(multihost.py).
+(multihost.py), and the sharded broadcast plane's executors (plane.py,
+plane_worker.py, ring.py).
 
 Counterpart of ``at2_node_tpu/parallel/__init__.py``. Lazy exports (PEP
-562): importing this package imports neither torch's device code nor the
-pool. The reference's broadcast-plane executors (``parallel/plane.py``)
-are not ported yet: their names raise ``NotImplementedError``.
+562): importing this package imports neither torch nor the pool, and the
+plane names resolve to ``plane.py`` alone, which is stdlib only: a spawn
+plane worker re-imports this package and must not load torch or CUDA.
 """
 
 __all__ = [
@@ -29,10 +30,9 @@ _PLANE = {
 
 def __getattr__(name):
     if name in _PLANE:
-        raise NotImplementedError(
-            f"parallel.{name}: the sharded broadcast plane's executors are not "
-            "ported yet (ROADMAP.md, queue 1, item 7c.1)"
-        )
+        from . import plane
+
+        return getattr(plane, name)
     if name in __all__:
         from . import pool
 

@@ -114,7 +114,42 @@ is printed):
        first (the net holds ~2,000 sockets), and the phase fails below it.
    8d. the entry (``entry.entry()``'s function on its example arguments)
        and ``dryrun_multichip(4, devices=["cuda:0"] * 4)``.
-9. One JSON line describing the kernels (their times and bound at every
+9. The sharded broadcast plane and the durable store (BASELINE config 3,
+   run right after phase 6): phase 6's net and run A's traffic (the same
+   seed) with ``[plane] shards = 2`` and ``[store] dir`` (a directory a
+   node, ``flush_interval = 1.0``), the reference's rings (4,096 slots of
+   1 KiB); ``df -B1 /dev/shm`` is printed first, and the phase fails if
+   the rings do not fit its free space.
+   9a. ``executor = "thread"``: the owner's bulk ``verify_many`` sends
+       admission's and the plane's signatures to the kernel.
+   9b. ``executor = "process"``: each shard a spawn worker that verifies
+       its plane signatures on the host, as in the reference; only
+       admission's reach the kernel. Each server has its two workers, no
+       worker maps libcuda or libtorch (every server maps libcuda), and
+       ``nvidia-smi --query-compute-apps=pid`` lists none of them.
+   Each of 9a and 9b: phase 6's checks of run A (the replay on every node,
+   a kernel launch a batch, the card in the build block), the plane block
+   (two shards, no crashed worker), ``plane_shard_effects_dropped`` 0,
+   the store flushed, and committed tx/s printed beside phase 6's.
+   9c. 9b's config at thresholds of two peers (f = 1) with a quarter of
+       run A's traffic: the first half of it, but for its last 8
+       transfers a client, goes to every node and into node 0's
+       segments; those last transfers go to nodes 1-3, and node 0 is
+       killed (SIGKILL) before its store's next flush, so what it
+       committed of them lies in its WAL alone (which must hold records).
+       Its shard workers must exit and its rings leave ``/dev/shm``. The
+       second half goes to nodes 1-3, node 0 restarts from its TOML and
+       store directory (its recovery states polled on ``/statusz`` until
+       ``live``; the store is read before the RPC port binds, so the
+       recovery block counts the segments loaded and the WAL records
+       replayed, which must be all its WAL held), one more transfer a
+       client goes to every node, and every node, node 0 included, must
+       equal the python-int replay. The verify kernel's launches are
+       counted from a snapshot after each node's warm-up (node 0's after
+       its restart went live): a launch a batch, at least one a node.
+   Every server of every run exits 0 on SIGTERM and leaves no ring in
+   ``/dev/shm``.
+10. One JSON line describing the kernels (their times and bound at every
    shape, every main-path run, the ptxas figures), then the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -1280,15 +1315,21 @@ class ServerNet:
     """``n`` ``server run`` processes on 127.0.0.1, configured the way an
     operator does it: one ``server config new`` per node (``--verifier
     cpu`` for the host kind), every other node's ``config get-node``
-    fragment appended."""
+    fragment appended. ``top``, when given, is top-level TOML keys put
+    before node i's config (the thresholds); ``tables(i)`` is TOML text
+    appended after the fragments (``[plane]``, ``[store]``)."""
 
-    def __init__(self, kind: str, workdir: str, n: int = NET_NODES, mode: str = "auto") -> None:
+    def __init__(self, kind: str, workdir: str, n: int = NET_NODES, mode: str = "auto",
+                 top: str = "", tables=None) -> None:
         self.kind = kind
         self.mode = mode
         self.workdir = workdir
         self.n = n
+        self.top = top
+        self.tables = tables
         self.procs: list = []
         self.logs: list = []
+        self.tomls: list = []
         self.rpc_ports: list = []
 
     def _cli(self, argvs: list, inputs: list) -> list:
@@ -1320,26 +1361,45 @@ class ServerNet:
         configs = [c.replace(table, table.replace('"auto"', f'"{self.mode}"')) for c in configs]
         fragments = self._cli([server_argv("config", "get-node")] * self.n, configs)
         for i in range(self.n):
-            toml = configs[i] + "\n" + "\n".join(f for j, f in enumerate(fragments) if j != i)
+            toml = self.top + configs[i] + "\n" + "\n".join(f for j, f in enumerate(fragments) if j != i)
+            if self.tables is not None:
+                toml += "\n" + self.tables(i)
             path = os.path.join(self.workdir, f"node{i}.toml")
             with open(path, "w") as f:
                 f.write(toml)
-            log_path = os.path.join(self.workdir, f"node{i}.log")
-            self.logs.append(log_path)
-            with open(path) as stdin, open(log_path, "w") as out:
-                self.procs.append(subprocess.Popen(server_argv("run"), stdin=stdin, stdout=out,
-                                                   stderr=subprocess.STDOUT, env=checkout_env()))
+            self.tomls.append(path)
+            self.logs.append(os.path.join(self.workdir, f"node{i}.log"))
+            self.procs.append(self._spawn(i, "w"))
         # a node binds its RPC port after its verifier's warmup
         t_end = time.perf_counter() + deadline_s
-        for i, port in enumerate(self.rpc_ports):
-            while not self._accepts(port):
-                check(self.procs[i].poll() is None,
-                      f"node {i} exited with {self.procs[i].returncode}: {self.log_tail(i)}")
-                check(time.perf_counter() < t_end, f"node {i}'s RPC port never came up: {self.log_tail(i)}")
-                time.sleep(0.1)
+        for i in range(self.n):
+            self.wait_rpc(i, t_end)
         while any(self.stats(i)["mesh_channels"] < 2 * (self.n - 1) for i in range(self.n)):
             check(time.perf_counter() < t_end, f"the {self.n}-node mesh did not connect in {deadline_s} s")
             time.sleep(0.05)
+
+    def _spawn(self, i: int, log_mode: str):
+        with open(self.tomls[i]) as stdin, open(self.logs[i], log_mode) as out:
+            return subprocess.Popen(server_argv("run"), stdin=stdin, stdout=out,
+                                    stderr=subprocess.STDOUT, env=checkout_env())
+
+    def wait_rpc(self, i: int, t_end: float) -> None:
+        while not self._accepts(self.rpc_ports[i]):
+            check(self.procs[i].poll() is None,
+                  f"node {i} exited with {self.procs[i].returncode}: {self.log_tail(i)}")
+            check(time.perf_counter() < t_end, f"node {i}'s RPC port never came up: {self.log_tail(i)}")
+            time.sleep(0.05)
+
+    def kill(self, i: int) -> None:
+        """SIGKILL node i: no shutdown drain, no final store flush."""
+        import signal
+
+        self.procs[i].send_signal(signal.SIGKILL)
+        self.procs[i].wait(timeout=60)
+
+    def restart(self, i: int) -> None:
+        """Start node i again from its TOML (its store directory with it)."""
+        self.procs[i] = self._spawn(i, "a")
 
     @staticmethod
     def _accepts(port: int) -> bool:
@@ -1404,6 +1464,14 @@ class ServerNet:
         return rcs
 
 
+def more_transfers(rng, clients: list, first_seq: int, per_client: int) -> list:
+    """``per_client`` transfers a client, sequences ``first_seq``.., each to
+    another client with an amount of 1-50 (no debit can fail)."""
+    n = len(clients)
+    return [[(seq, clients[(c + 1 + int(rng.integers(0, n - 1))) % n].public, int(rng.integers(1, 51)))
+             for seq in range(first_seq, first_seq + per_client)] for c in range(n)]
+
+
 def node_traffic(rng, n_clients: int, per_batched: int, per_unary: int, n_tampered: int):
     """Seeded wallets and their transfers, sequences 1..per_batched (run A)
     then per_batched+1..+per_unary (run B), each to another client with an
@@ -1414,14 +1482,8 @@ def node_traffic(rng, n_clients: int, per_batched: int, per_unary: int, n_tamper
     from at2_node_tpu_torch.types import transfer_signing_bytes
 
     clients = [SignKeyPair(rng.bytes(32)) for _ in range(n_clients)]
-
-    def transfer(c: int, seq: int) -> tuple:
-        recipient = clients[(c + 1 + int(rng.integers(0, n_clients - 1))) % n_clients].public
-        return (seq, recipient, int(rng.integers(1, 51)))
-
-    run_a = [[transfer(c, s) for s in range(1, per_batched + 1)] for c in range(n_clients)]
-    run_b = [[transfer(c, s) for s in range(per_batched + 1, per_batched + per_unary + 1)]
-             for c in range(n_clients)]
+    run_a = more_transfers(rng, clients, 1, per_batched)
+    run_b = more_transfers(rng, clients, per_batched + 1, per_unary)
     twins: dict = {}
     for k in range(n_tampered):
         c = k % n_clients
@@ -1477,6 +1539,24 @@ async def check_sequences(net: ServerNet, clients: list, want: int) -> None:
             seqs = await asyncio.gather(*(conn.get_last_sequence(kp.public) for kp in clients))
         short = [c for c, s in enumerate(seqs) if s != want]
         check(not short, f"node {i}: clients {short} are not at sequence {want}")
+
+
+async def check_replay(net: ServerNet, clients: list, per_client: list) -> None:
+    """Every node's ledger (``GetLastSequence`` and ``GetBalance`` of every
+    client) equals the python-int replay of ``per_client[c]``, client c's
+    transfers."""
+    from at2_node_tpu_torch.client import Client
+
+    replay = replay_ledger([(clients[c].public, seq, r, a)
+                            for c in range(len(clients)) for seq, r, a in per_client[c]])
+    for i, port in enumerate(net.rpc_ports):
+        async with Client(f"http://127.0.0.1:{port}") as conn:
+            for kp in clients:
+                seq = await conn.get_last_sequence(kp.public)
+                bal = await conn.get_balance(kp.public)
+                check([seq, bal] == replay[kp.public.hex()],
+                      f"node {i}: {kp.public.hex()[:12]} has sequence {seq}, balance {bal}; "
+                      f"the replay says {replay[kp.public.hex()]}")
 
 
 async def node_run(net: ServerNet, label: str, clients: list, transfers: list, batched: bool,
@@ -1547,8 +1627,6 @@ async def node_path(seed: int, by_lanes, card, kind: str = "cuda", n_clients: in
     ``card`` (the name the build block must carry) are None off the card."""
     import tempfile
 
-    from at2_node_tpu_torch.client import Client
-
     rng = np.random.default_rng(seed + (6 if mode == "auto" else 7))
     clients, run_a, run_b, twins = node_traffic(rng, n_clients, per_batched, per_unary, n_tampered)
     prefix = "" if mode == "auto" else f"{mode} "
@@ -1573,16 +1651,7 @@ async def node_path(seed: int, by_lanes, card, kind: str = "cuda", n_clients: in
             check(sum(refused_total.values()) == len(twins),
                   f"{sum(refused_total.values())} of {len(twins)} tampered transfers refused")
             # the ledgers: every valid transfer committed on every node
-            replay = replay_ledger([(clients[c].public, seq, r, a)
-                                    for c in range(n_clients) for seq, r, a in run_a[c] + run_b[c]])
-            for i, port in enumerate(net.rpc_ports):
-                async with Client(f"http://127.0.0.1:{port}") as conn:
-                    for kp in clients:
-                        seq = await conn.get_last_sequence(kp.public)
-                        bal = await conn.get_balance(kp.public)
-                        check([seq, bal] == replay[kp.public.hex()],
-                              f"node {i}: {kp.public.hex()[:12]} has sequence {seq}, balance {bal}; "
-                              f"the replay says {replay[kp.public.hex()]}")
+            await check_replay(net, clients, [run_a[c] + run_b[c] for c in range(n_clients)])
             log(f"{prefix}node net: {len(clients)} accounts equal the python-int replay on all {net.n} "
                 f"nodes; {sum(refused_total.values())} tampered transfers refused with INVALID_ARGUMENT")
         finally:
@@ -1675,6 +1744,390 @@ def node_checks(net: ServerNet, run: dict, by_lanes, card, kind: str, refused: C
     return {"launches": launches, "rlc_launches": rlc_launches, "tx_per_s": run["tx_per_s"],
             "wall_s": run["wall_s"], "transfers": run["transfers"], "sign_s": run["sign_s"],
             "submit_s": run["submit_s"], "nodes": per_node}
+
+
+# -- phase 9 ---------------------------------------------------------------
+
+
+PLANE_SHARDS = 2
+STORE_FLUSH_S = 1.0
+RESTART_PER_CLIENT = NET_PER_CLIENT_BATCHED // 4  # 9c: a quarter of run A's traffic
+RESTART_WAL_PER_CLIENT = 8  # 9c: transfers a client node 0 holds in its WAL alone
+RING_SLOTS = 4096  # the reference's [plane] defaults: 4,096 slots of 1 KiB
+RING_SLOT_BYTES = 1024
+RINGS_PER_SHARD = 3  # actions, effects, obs (parallel/plane.py)
+
+
+def check_shm_room(n_nodes: int) -> None:
+    """Prints ``df -B1 /dev/shm`` and fails unless the rings of ``n_nodes``
+    nodes and of one node more (a killed node's, until they are removed)
+    fit in its free space."""
+    df = subprocess.run(["df", "-B1", "/dev/shm"], capture_output=True, text=True, timeout=30)
+    log("df -B1 /dev/shm:", " | ".join(df.stdout.strip().splitlines()))
+    st = os.statvfs("/dev/shm")
+    free = st.f_bavail * st.f_frsize
+    need = (n_nodes + 1) * PLANE_SHARDS * RINGS_PER_SHARD * RING_SLOTS * RING_SLOT_BYTES
+    check(need <= free, f"/dev/shm has {free} bytes free, the plane's rings need {need}")
+
+
+def rings_of(pids) -> list:
+    """The plane rings in /dev/shm that the owners ``pids`` created."""
+    return sorted(f for f in os.listdir("/dev/shm")
+                  if any(f.startswith(f"at2pl-{pid}-") for pid in pids))
+
+
+def _proc_read(pid: int, name: str) -> str:
+    try:
+        with open(f"/proc/{pid}/{name}", "rb") as f:
+            return f.read().decode(errors="replace")
+    except OSError:
+        return ""
+
+
+def proc_alive(pid: int) -> bool:
+    """Whether ``pid`` runs (a zombie does not)."""
+    stat = _proc_read(pid, "stat")
+    return bool(stat) and stat.rsplit(")", 1)[1].split()[0] not in ("Z", "X")
+
+
+def shard_workers(pid: int) -> list:
+    """The spawn children of process ``pid`` (its plane shard workers),
+    found by their parent pid in /proc."""
+    out = []
+    for name in os.listdir("/proc"):
+        if not name.isdigit():
+            continue
+        stat = _proc_read(int(name), "stat")
+        if stat and int(stat.rsplit(")", 1)[1].split()[1]) == pid and proc_alive(int(name)) \
+                and "spawn_main" in _proc_read(int(name), "cmdline"):
+            out.append(int(name))
+    return sorted(out)
+
+
+def maps_lib(pid: int, stem: str) -> bool:
+    """Whether process ``pid`` has a file whose name holds ``stem`` mapped."""
+    return any(stem in line.rsplit("/", 1)[-1] for line in _proc_read(pid, "maps").splitlines()
+               if "/" in line)
+
+
+def check_workers(net: ServerNet, label: str) -> dict:
+    """Process executor: each server has its shard workers; none of them
+    has mapped libcuda or libtorch (the servers have libcuda), and
+    ``nvidia-smi --query-compute-apps`` lists no worker."""
+    servers = [p.pid for p in net.procs]
+    workers = {pid: shard_workers(pid) for pid in servers}
+    for i, pid in enumerate(servers):
+        check(len(workers[pid]) == PLANE_SHARDS,
+              f"{label} node {i} (pid {pid}) has shard workers {workers[pid]}, not {PLANE_SHARDS}")
+        check(net.kind != "cuda" or maps_lib(pid, "libcuda"), f"{label} node {i} has no libcuda mapped")
+    every = [w for ws in workers.values() for w in ws]
+    for w in every:
+        check(not maps_lib(w, "libcuda"), f"{label}: shard worker {w} has libcuda mapped")
+        check(not maps_lib(w, "libtorch"), f"{label}: shard worker {w} has libtorch mapped")
+    if net.kind != "cuda":
+        return {"servers": servers, "workers": every, "gpu_pids": None}
+    smi = subprocess.run(["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    check(smi.returncode == 0, f"nvidia-smi --query-compute-apps failed: {smi.stderr.strip()}")
+    gpu = sorted(int(x) for x in smi.stdout.split() if x.strip().isdigit())
+    check(not set(gpu) & set(every), f"{label}: nvidia-smi lists shard workers: {gpu}, workers {every}")
+    # the compute apps: the servers and this process; a worker with a
+    # context would add one (in a container the pids may be of another
+    # namespace, so they are counted too)
+    check(len(gpu) <= len(servers) + 1,
+          f"{label}: nvidia-smi lists {len(gpu)} compute apps ({gpu}) for {len(servers)} servers and this process")
+    same_ns = bool(set(gpu) & set(servers))
+    if same_ns:
+        check(set(gpu) <= set(servers) | {os.getpid()},
+              f"{label}: nvidia-smi lists {gpu}, the servers are {servers}")
+    log(f"{label}: servers {servers}, shard workers {every} (none maps libcuda or libtorch; "
+        f"every server maps libcuda); nvidia-smi lists {len(gpu)} compute apps {gpu}: at most the "
+        f"{len(servers)} servers and this process"
+        + ("" if same_ns else " (pids of another namespace)"))
+    return {"servers": servers, "workers": every, "gpu_pids": gpu}
+
+
+def send_batched(net: ServerNet, clients: list, per_client: list, node_of) -> "asyncio.Future":
+    """Client c sends ``per_client[c]`` with ``send_asset_many`` to node
+    ``node_of(c)``."""
+    from at2_node_tpu_torch.client import Client
+
+    async def one(c: int) -> None:
+        async with Client(f"http://127.0.0.1:{net.rpc_ports[node_of(c)]}") as conn:
+            await conn.send_asset_many(clients[c], per_client[c])
+
+    return asyncio.gather(*(one(c) for c in range(len(clients))))
+
+
+async def wait_sequences(net: ServerNet, i: int, clients: list, want: int, deadline_s: float) -> float:
+    """Poll node i's GetLastSequence of every client until all are ``want``;
+    the seconds it took."""
+    from at2_node_tpu_torch.client import Client
+
+    t0 = time.perf_counter()
+    async with Client(f"http://127.0.0.1:{net.rpc_ports[i]}") as conn:
+        while True:
+            seqs = await asyncio.gather(*(conn.get_last_sequence(kp.public) for kp in clients))
+            if all(s == want for s in seqs):
+                return time.perf_counter() - t0
+            check(time.perf_counter() - t0 < deadline_s,
+                  f"node {i}: {sum(s != want for s in seqs)} clients short of sequence {want} "
+                  f"after {deadline_s} s")
+            await asyncio.sleep(0.1)
+
+
+def store_line(net: ServerNet, label: str, history: int) -> list:
+    """Each node's store counters and plane block, logged: the store must
+    hold ``history`` committed bodies and have written segments (waiting
+    up to three flush intervals for its next flush), and the plane's
+    handoff drops must be 0."""
+    out = []
+    for i in range(net.n):
+        t_end = time.perf_counter() + 3 * STORE_FLUSH_S
+        while True:
+            status = net.statusz(i)
+            st = status["stats"]
+            if st["store_segments_written"] > 0 or time.perf_counter() > t_end:
+                break
+            time.sleep(0.1)
+        plane = status["plane"]
+        dropped = net.metrics(i)["at2_plane_shard_effects_dropped"]
+        check(dropped == 0, f"{label} node {i}: plane_shard_effects_dropped {dropped}")
+        check(plane.get("shards") == PLANE_SHARDS and "worker_crashed" not in plane,
+              f"{label} node {i}: plane block {plane}")
+        row = {"store_flushes": st["store_flushes"], "store_segments_written": st["store_segments_written"],
+               "store_segment_bytes": st["store_segment_bytes"], "store_gen": st["store_gen"],
+               "store_history": st["store_history"], "plane": plane}
+        check(row["store_segments_written"] > 0, f"{label} node {i}: the store wrote no segment")
+        check(row["store_history"] == history,
+              f"{label} node {i}: the store holds {row['store_history']} committed bodies, not {history}")
+        log(f"{label} node {i}: store {row['store_flushes']} flushes, {row['store_segments_written']} "
+            f"segments, {row['store_segment_bytes']} segment bytes, generation {row['store_gen']}, "
+            f"{row['store_history']} committed bodies; plane {json.dumps(plane, sort_keys=True)}")
+        out.append(row)
+    return out
+
+
+def launches_since(net: ServerNet, i: int, status0: dict, label: str) -> dict:
+    """Node i's verify kernel launches and verifier batches since its
+    ``/statusz`` snapshot ``status0`` (taken after its warm-up): a launch
+    a batch, and at least one (the CPU kind has no batches)."""
+    status = net.statusz(i)
+    batches = status["stats"].get("verifier_batches", 0) - status0["stats"].get("verifier_batches", 0)
+    if net.kind != "cuda":
+        return {"batches": batches, "launches": 0}
+    launches = status["build"]["kernel_launches"] - status0["build"]["kernel_launches"]
+    check(batches > 0, f"{label} node {i}: the verifier dispatched no batch")
+    check(launches == batches, f"{label} node {i}: {batches} batches, {launches} verify kernel launches")
+    return {"batches": batches, "launches": launches}
+
+
+def wal_records(store_dir: str) -> int:
+    """The records in the WAL that the store's manifest names (read once
+    its node is dead: the files are what a restart replays)."""
+    from at2_node_tpu_torch.store.manifest import read_manifest
+    from at2_node_tpu_torch.store.wal import replay
+
+    doc = read_manifest(store_dir)
+    check(doc is not None, f"no store manifest in {store_dir}")
+    return sum(1 for _ in replay(os.path.join(store_dir, doc["wal"])))
+
+
+async def restart_run(net: ServerNet, clients: list, rng, first_seq: int, per_client: int,
+                      store0: str, card_line: str) -> dict:
+    """9c: a quarter of run A's traffic. Its first half, but for the last
+    RESTART_WAL_PER_CLIENT transfers a client, goes to every node and is
+    flushed into node 0's segments; those last transfers go to nodes 1-3
+    and node 0 is killed (SIGKILL) before its next flush (a small part,
+    so that it commits within the flush interval), so what it committed
+    of them lies in its WAL alone. The second
+    half goes to nodes 1-3, node 0 restarts from its TOML and store
+    directory (``store0``) and must replay its WAL whole, a last transfer
+    a client goes to every node, and node 0 must reach every client's
+    last sequence and the replay's ledger. Each node's verify kernel
+    launches are counted from a snapshot after its warm-up: nodes 1-3
+    from the start, node 0 from its restart's ``live``."""
+    half = per_client // 2
+    first = more_transfers(rng, clients, first_seq, half)
+    second = more_transfers(rng, clients, first_seq + half, per_client - half)
+    nudge = more_transfers(rng, clients, first_seq + per_client, 1)
+    n = net.n
+    label = "plane+store node net (9c, kill and restart)"
+    to_peers = lambda c: c % n if c % n else 1 + c % (n - 1)  # noqa: E731
+    status0 = [net.statusz(i) for i in range(n)]
+    cut = half - min(half // 2, RESTART_WAL_PER_CLIENT)
+    part1, part2 = [t[:cut] for t in first], [t[cut:] for t in first]
+    before = [net.committed(i) for i in range(n)]
+    seg0 = status0[0]["stats"]["store_segments_written"]
+    await send_batched(net, clients, part1, lambda c: c % n)
+    wait_committed(net, [b + sum(map(len, part1)) for b in before], NET_DEADLINE_S)
+    # a flush of node 0's store that began after the first part had
+    # committed: it folds its WAL into segments, and the next one begins a
+    # flush interval after it ended, so after the last poll that did not
+    # see it plus an interval
+    t_quiet = t_wait = time.perf_counter()
+    flushes = net.stats(0)["store_flushes"]
+    while True:
+        t_poll = time.perf_counter()
+        st = net.stats(0)
+        if st["store_flushes"] > flushes:
+            break
+        t_quiet = t_poll
+        check(t_poll - t_wait < 5 * STORE_FLUSH_S, "node 0's store did not flush")
+        time.sleep(0.02)
+    check(st["store_segments_written"] > seg0, "node 0's store wrote no segment for the first part")
+    flush_at = t_quiet + STORE_FLUSH_S  # node 0's next flush begins no sooner
+    kill_by = flush_at - 0.1
+    mid = [net.committed(i) for i in range(n)]
+    await send_batched(net, clients, part2, to_peers)
+    check(time.perf_counter() < kill_by,
+          "the second part took longer to submit than node 0's store takes between flushes")
+    want0 = mid[0] + sum(map(len, part2))
+    while net.committed(0) < want0 and time.perf_counter() < kill_by:
+        time.sleep(0.01)
+    at_kill = net.committed(0) - mid[0]
+    victim = net.procs[0].pid
+    orphans = shard_workers(victim)
+    t_kill = time.perf_counter()
+    net.kill(0)
+    check(t_kill < flush_at, f"node 0 was killed {t_kill - flush_at:.3f} s after its next flush could begin")
+    wal_left = wal_records(store0)
+    check(wal_left > 0, f"node 0 died with {at_kill} transfers of the second part committed and an "
+                        f"empty WAL")
+    # the orphaned shard workers see their owner gone and exit; then the
+    # resource tracker they shared with it unlinks its rings
+    while any(proc_alive(w) for w in orphans):
+        check(time.perf_counter() - t_kill < 30, f"node 0's shard workers {orphans} outlived it")
+        time.sleep(0.05)
+    t_gone = time.perf_counter()
+    while rings_of([victim]) and time.perf_counter() - t_gone < 10:
+        time.sleep(0.05)
+    stale = rings_of([victim])
+    check(not stale, f"node 0's rings {stale} were left in /dev/shm 10 s after its workers exited")
+    log(f"{label}: node 0 (pid {victim}) killed with SIGKILL {flush_at - t_kill:.3f} s before "
+        f"its store's next flush could begin, with {at_kill} of the second part's "
+        f"{sum(map(len, part2))} transfers committed and {wal_left} records in its WAL; its shard "
+        f"workers {orphans} exited and its rings were gone from /dev/shm "
+        f"{time.perf_counter() - t_kill:.3f} s after the kill")
+    t_down = time.perf_counter()
+    await send_batched(net, clients, second, to_peers)
+    want = [None] + [mid[i] + (per_client - cut) * len(clients) for i in range(1, n)]
+    pending = set(range(1, n))
+    while pending:
+        check(time.perf_counter() - t_down < NET_DEADLINE_S, f"nodes {sorted(pending)} stalled with node 0 down")
+        pending = {i for i in pending if net.committed(i) < want[i]}
+        time.sleep(NODE_POLL_S)
+    down_s = time.perf_counter() - t_down
+    # restart: the store is read before the RPC port binds, so the first
+    # two recovery states are over by the time /statusz answers; its
+    # recovery block counts them
+    t_restart = time.perf_counter()
+    net.restart(0)
+    net.wait_rpc(0, t_restart + 180.0)
+    rpc_s = time.perf_counter() - t_restart
+    states = []
+    while True:
+        status = net.statusz(0)
+        rec = status["recovery"]
+        if not states or states[-1] != rec["state"]:
+            states.append(rec["state"])
+        if rec["state"] == "live":
+            break
+        check(time.perf_counter() - t_restart < 120, f"node 0 not live after 120 s: {rec}")
+        time.sleep(0.05)
+    live_s = time.perf_counter() - t_restart
+    status0[0] = status
+    order = ("cold", "loading_segments", "replaying_wal", "catchup", "live")
+    check([order.index(x) for x in states] == sorted(order.index(x) for x in states),
+          f"node 0's recovery states went {states}")
+    check(rec["segments_loaded"] > 0, f"node 0 restarted without loading a segment: {rec}")
+    check(rec["wal_records_replayed"] == wal_left,
+          f"node 0 replayed {rec['wal_records_replayed']} WAL records, its WAL held {wal_left}")
+    await send_batched(net, clients, nudge, lambda c: c % n)
+    final_seq = first_seq + per_client
+    catch_s = await wait_sequences(net, 0, clients, final_seq, NET_DEADLINE_S)
+    for i in range(1, n):
+        await wait_sequences(net, i, clients, final_seq, NET_DEADLINE_S)
+    k1 = [launches_since(net, i, status0[i], label) for i in range(n)]
+    log(f"{label}: node 0 restarted: RPC up {rpc_s:.3f} s after start, recovery states polled "
+        f"{' -> '.join(states)}, live {live_s:.3f} s after start; recovery block "
+        f"{json.dumps(rec, sort_keys=True)}; every client at sequence {final_seq} on node 0 "
+        f"{catch_s:.3f} s after the last transfers; nodes 1-3 committed the second half in "
+        f"{down_s:.3f} s with node 0 down; verify kernel launches a node {[k['launches'] for k in k1]} "
+        f"(a launch a batch; node 0 since its restart went live, nodes 1-3 since the run began); "
+        f"{card_line}")
+    return {"transfers": len(clients) * (per_client + 1), "killed_at_part2": at_kill,
+            "wal_records_at_kill": wal_left, "rpc_up_s": rpc_s, "live_s": live_s, "states": states,
+            "recovery": rec, "catchup_s": catch_s, "down_commit_s": down_s, "nodes": k1,
+            "per_client": [first[c] + second[c] + nudge[c] for c in range(len(clients))]}
+
+
+async def plane_store_path(seed: int, by_lanes, card, card_line: str, kind: str = "cuda",
+                           n_clients: int = NET_CLIENTS, per_batched: int = NET_PER_CLIENT_BATCHED,
+                           restart_per_client: int = RESTART_PER_CLIENT) -> dict:
+    """Phase 9: phase 6's net and run A's traffic (same seed) with
+    ``[plane] shards = 2`` and ``[store] dir``: 9a the thread executor,
+    9b the process executor, 9c 9b's config at thresholds of two peers,
+    a kill and a restart."""
+    import tempfile
+
+    rng = np.random.default_rng(seed + 6)  # phase 6's: the same clients and run A
+    clients, run_a, _, _ = node_traffic(rng, n_clients, per_batched, NET_PER_CLIENT_PER_TX,
+                                        NODE_TAMPERED)
+    check_shm_room(NET_NODES)
+    out = {}
+    # 9a and 9b keep phase 6's thresholds (all three peers); 9c runs a
+    # crash-fault net (f = 1: two peers), which keeps committing while a
+    # node is down
+    for sub, executor, top in (("9a", "thread", ""), ("9b", "process", ""),
+                               ("9c", "process", "echo_threshold = 2\nready_threshold = 2\n")):
+        label = f"plane+store node net ({sub}, executor \"{executor}\")"
+        with tempfile.TemporaryDirectory(prefix=f"at2-phase{sub}-") as workdir:
+            def tables(i: int, executor=executor, workdir=workdir) -> str:
+                return (f'[plane]\nshards = {PLANE_SHARDS}\nexecutor = "{executor}"\n'
+                        f"ring_slots = {RING_SLOTS}\nring_slot_bytes = {RING_SLOT_BYTES}\n\n"
+                        f'[store]\ndir = "{os.path.join(workdir, f"store{i}")}"\n'
+                        f"flush_interval = {STORE_FLUSH_S}\n")
+
+            net = ServerNet(kind, workdir, top=top, tables=tables)
+            owners = set()  # every server pid of this net: the rings' owners
+            t0 = time.perf_counter()
+            try:
+                net.start(deadline_s=180.0)
+                owners.update(p.pid for p in net.procs)
+                log(f"{label}: {net.n} `server run` processes, [plane] shards = {PLANE_SHARDS}, "
+                    f"ring_slots = {RING_SLOTS}, [store] flush_interval = {STORE_FLUSH_S}"
+                    + (", thresholds 2" if top else "")
+                    + f", up and meshed in {time.perf_counter() - t0:.1f} s")
+                workers = check_workers(net, label) if executor == "process" else None
+                if sub == "9c":
+                    res = await restart_run(net, clients, rng, 1, restart_per_client,
+                                            os.path.join(workdir, "store0"), card_line)
+                    owners.update(p.pid for p in net.procs)
+                    await check_replay(net, clients, res.pop("per_client"))
+                    log(f"{label}: {len(clients)} accounts equal the python-int replay on all "
+                        f"{net.n} nodes, node 0 included")
+                    name = "plane_store_restart"
+                else:
+                    res = await node_run(net, label, clients, run_a, True, {}, per_batched,
+                                         NET_DEADLINE_S)
+                    res = node_checks(net, res, by_lanes, card, kind, Counter())
+                    await check_replay(net, clients, run_a)
+                    busy = [p["kernel_busy_share"] for p in res["nodes"]]
+                    log(f"{label}: {res['tx_per_s']:,.0f} tx/s committed; verify kernel launches a "
+                        f"node {[p['launches'] for p in res['nodes']]}, kernel busy "
+                        f"{[round(100 * b, 2) if b is not None else None for b in busy]}% "
+                        f"(phase 3 times); {card_line}")
+                    name = f"plane_store_{executor}"
+                res["store"] = store_line(net, label, res["transfers"])
+                res["workers"] = workers
+                out[name] = res
+            finally:
+                rcs = net.stop()
+            check(rcs == [0] * net.n, f"{label}: servers exited with {rcs} on SIGTERM")
+            left = rings_of(owners)
+            check(not left, f"{label}: rings left in /dev/shm after shutdown: {left}")
+    return out
 
 
 # -- phase 8 ---------------------------------------------------------------
@@ -1919,6 +2372,13 @@ def main() -> None:
     net = asyncio.run(net_path(args.seed, kp["by_lanes"]))
     device_name = torch.cuda.get_device_name(0)
     nodes = asyncio.run(node_path(args.seed, times, device_name))
+    t9 = time.perf_counter()
+    planes = asyncio.run(plane_store_path(args.seed, times, device_name, card))
+    log(f"plane+store node net (SendAssetBatch): executor \"thread\" "
+        f"{planes['plane_store_thread']['tx_per_s']:,.0f} tx/s, \"process\" "
+        f"{planes['plane_store_process']['tx_per_s']:,.0f} tx/s, against "
+        f"{nodes['node_grpc_batched']['tx_per_s']:,.0f} tx/s for phase 6's run A ([plane] shards = 1, "
+        f"no store) in this call; phase 9 took {time.perf_counter() - t9:.1f} s; {card}")
     rlc_nodes = asyncio.run(node_path(args.seed, times, device_name, mode="rlc",
                                       per_unary=NODE_RLC_PER_UNARY))
     log(f"rlc node net (SendAssetBatch): {rlc_nodes['rlc_node_grpc_batched']['tx_per_s']:,.0f} tx/s "
@@ -1940,6 +2400,7 @@ def main() -> None:
         }
     runs.update(net)
     runs.update(nodes)
+    runs.update(planes)
     top = kp["by_lanes"][65536]
     kernels = [{
         "name": "ed25519_verify",

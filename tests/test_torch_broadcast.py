@@ -21,20 +21,22 @@ import numpy as np
 import pytest
 
 from at2_node_tpu.broadcast import messages as ref_msgs
+from at2_node_tpu.broadcast import shards as ref_shards
 from at2_node_tpu.broadcast import stack as ref_stack
 from at2_node_tpu.crypto import keys as ref_keys
 from at2_node_tpu.crypto import verifier as ref_verifier
 from at2_node_tpu.net import peers as ref_peers
 from at2_node_tpu_torch.broadcast import messages as port_msgs
+from at2_node_tpu_torch.broadcast import shards as port_shards
 from at2_node_tpu_torch.broadcast import stack as port_stack
 from at2_node_tpu_torch.crypto import keys as port_keys
 from at2_node_tpu_torch.crypto import verifier as port_verifier
 from at2_node_tpu_torch.net import peers as port_peers
 
 IMPLS = {
-    "ref": SimpleNamespace(m=ref_msgs, stack=ref_stack, SK=ref_keys.SignKeyPair,
+    "ref": SimpleNamespace(m=ref_msgs, stack=ref_stack, shards=ref_shards, SK=ref_keys.SignKeyPair,
                            Peer=ref_peers.Peer, verifier=ref_verifier.CpuVerifier),
-    "port": SimpleNamespace(m=port_msgs, stack=port_stack, SK=port_keys.SignKeyPair,
+    "port": SimpleNamespace(m=port_msgs, stack=port_stack, shards=port_shards, SK=port_keys.SignKeyPair,
                             Peer=port_peers.Peer, verifier=port_verifier.CpuVerifier),
 }
 
@@ -58,9 +60,12 @@ class FakeMesh:
 
 class Net:
     """A broadcast endpoint of one implementation plus n_peers seeded
-    signing identities, and seeded clients."""
+    signing identities, and seeded clients. With ``shards`` the endpoint
+    is the sharded plane (``ShardedPlane``) under ``executor``, else the
+    monolithic ``Broadcast``."""
 
-    def __init__(self, impl: str, n_peers: int, seed: int = 0, workers: int = 4):
+    def __init__(self, impl: str, n_peers: int, seed: int = 0, workers: int = 4,
+                 shards: int = 0, executor: str = "inline"):
         self.x = x = IMPLS[impl]
         self.rng = np.random.default_rng(seed)
         self.peer_keys = [x.SK(self.rng.bytes(32)) for _ in range(n_peers)]
@@ -68,8 +73,12 @@ class Net:
                  for i, kp in enumerate(self.peer_keys)]
         self.mesh = FakeMesh(peers)
         self.node_key = x.SK(self.rng.bytes(32))
-        self.bcast = x.stack.Broadcast(self.node_key, self.mesh, x.verifier(mode="per_sig"),
-                                       workers=workers)
+        if shards:
+            self.bcast = x.shards.ShardedPlane(self.node_key, self.mesh, x.verifier(mode="per_sig"),
+                                               shards=shards, executor=executor, workers=workers)
+        else:
+            self.bcast = x.stack.Broadcast(self.node_key, self.mesh, x.verifier(mode="per_sig"),
+                                           workers=workers)
 
     def client(self):
         return self.x.SK(self.rng.bytes(32))
@@ -357,11 +366,12 @@ async def test_batch_slot_delivers_endorsed_entries_only(impl):
 # -- the same messages through both stacks -----------------------------------
 
 
-async def _scripted_run(impl: str, seed: int):
+async def _scripted_run(impl: str, seed: int, shards: int = 0, executor: str = "inline"):
     """A fixed script of local submissions and peer messages (both
     planes, an equivocating client, a tampered entry, a content pull);
-    returns what the node delivered and sent."""
-    net = Net(impl, 3, seed=seed)
+    returns what the node delivered and sent (``sent_in_order``: the
+    broadcast frames in the order the node sent them)."""
+    net = Net(impl, 3, seed=seed, shards=shards, executor=executor)
     m = net.x.m
     async with net:
         clients = [net.client() for _ in range(4)]
@@ -403,6 +413,7 @@ async def _scripted_run(impl: str, seed: int):
             delivered.append(net.bcast.delivered.get_nowait().encode())
         return {
             "delivered": sorted(delivered),
+            "sent_in_order": list(net.mesh.sent),
             "sent": sorted(net.mesh.sent),
             "unicast": sorted((peer.address, f) for peer, f in net.mesh.unicast),
             "stats": net.bcast.stats.as_dict(),

@@ -1,8 +1,10 @@
 """The port's node configuration against the JAX package's: a TOML the
 reference writes loads in the port and dumps byte-equal (and back), the
 verifier kinds map onto this build's (``"cuda"`` for ``"tpu"``; ``"pool"``
-as written), and a config that turns on a subsystem not ported yet is
-refused at ``Service.start``, naming its ROADMAP item.
+as written), a config that turns on a subsystem not ported yet is
+refused at ``Service.start``, naming its ROADMAP item, and a port
+``Service`` starts with ``[plane] shards = 2`` under each executor and with
+``[store] dir``, reports them on ``/statusz`` and stops cleanly.
 """
 
 import asyncio
@@ -133,8 +135,6 @@ def _port_config(**tables):
 @pytest.mark.parametrize(
     "tables,what",
     [
-        ({"plane": dict(shards=2)}, r"\[plane\] shards > 1"),
-        ({"store": dict(dir="store")}, r"\[store\] dir"),
         ({"finality": dict(enabled=True)}, r"\[finality\] enabled"),
     ],
 )
@@ -142,6 +142,61 @@ def test_deferred_tables_raise_at_start_naming_their_item(tables, what):
     cfg = _port_config(**tables)
     with pytest.raises(NotImplementedError, match=what + r".*item 7c"):
         asyncio.run(Service.start(cfg))
+
+
+@pytest.mark.parametrize(
+    "tables",
+    [
+        {"plane": dict(shards=2, executor="inline")},
+        {"plane": dict(shards=2, executor="thread")},
+        {"plane": dict(shards=2, executor="process", ring_slots=64)},
+        {"store": dict(dir="store", flush_interval=0.1)},
+    ],
+    ids=["plane-inline", "plane-thread", "plane-process", "store"],
+)
+def test_plane_and_store_tables_start_and_report(tables, tmp_path):
+    """The ``[plane]`` and ``[store]`` tables, refused until the sharded
+    plane and the store were ported, now start a node."""
+    import chip_smoke
+
+    rng = np.random.default_rng(12)
+    node, rpc = chip_smoke.free_ports(2)
+    if "store" in tables:
+        tables = {"store": dict(tables["store"], dir=str(tmp_path / "store"))}
+    cfg = _port_config(**tables)
+    cfg.node_address, cfg.rpc_address = f"127.0.0.1:{node}", f"127.0.0.1:{rpc}"
+    cfg.sign_key, cfg.network_key = SignKeyPair(rng.bytes(32)), ExchangeKeyPair(rng.bytes(32))
+    cfg.verifier = port_config.VerifierConfig(kind="cpu")
+
+    async def run():
+        service = await Service.start(cfg)
+        try:
+            status = service.statusz()
+            if "plane" in tables:
+                want = tables["plane"]
+                assert {k: status["plane"][k] for k in ("shards", "executor", "effects_dropped")} == \
+                    {"shards": 2, "executor": want["executor"], "effects_dropped": 0}
+                assert service.broadcast.plane_info() == status["plane"]
+                if want["executor"] == "process":
+                    assert all(service.broadcast._executor.alive(i) for i in range(2))
+            else:
+                assert status["plane"]["shards"] == 1
+                await asyncio.sleep(0.3)  # a periodic flush or two
+                st = service.snapshot_stats()
+                assert st["store_gen"] >= 1 and st["store_flushes"] >= 1
+                # a store-backed start with a peer to catch up from waits
+                # in "catchup" for its first session (ours never answers)
+                assert status["recovery"]["state"] == "catchup"
+        finally:
+            await service.close()
+        return service
+
+    service = asyncio.run(run())
+    if "plane" in tables and tables["plane"]["executor"] == "process":
+        ex = service.broadcast._executor
+        assert all(not p.is_alive() for p in ex._procs) and ex.actions == []
+    if "store" in tables:
+        assert (tmp_path / "store" / "MANIFEST.json").exists()
 
 
 def test_coordinator_raises_naming_item_11(monkeypatch):

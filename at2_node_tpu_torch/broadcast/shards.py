@@ -1241,6 +1241,18 @@ class ShardedPlane:
                 # the doc and replay it right after the workers spawn
                 self._pending_wm_restore.append(doc)
 
+    def part_delivered_batches(self, limit: int = 16) -> list:
+        """Every owner-side core's part-delivered batch slots, oldest
+        first, each with its shard (a process shard's live in its
+        worker and are not listed)."""
+        rows = [
+            dict(row, shard=sid)
+            for sid, core in enumerate(self._cores)
+            for row in core.part_delivered_batches(limit)
+        ]
+        rows.sort(key=lambda r: -r["age_s"])
+        return rows[:limit]
+
     def plane_info(self) -> dict:
         """The /statusz ``plane`` block (tools/top.py shards column)."""
         info = {

@@ -1954,6 +1954,41 @@ class Broadcast:
 
     # -- durability (store manifest round-trip, at2_node_tpu/store/) ------
 
+    def part_delivered_batches(self, limit: int = 16) -> list:
+        """The batch slots still held with no content fully delivered,
+        oldest first, each with its entries, what was delivered and
+        rejected here and the votes seen: where a stalled run stopped
+        (``/debugz`` ``plane_slots``)."""
+        def most_bits(by_hash: dict) -> int:
+            return max((bin(b).count("1") for b in list(by_hash.values())),
+                       default=0)
+
+        def origins(votes: dict) -> dict:
+            return {h.hex()[:12]: len(v.by_origin)
+                    for h, v in list(votes.items())}
+
+        now = self.clock.monotonic()
+        rows = []
+        # list() copies in one step: a thread shard may add slots meanwhile
+        for (origin, bseq), st in list(self._batch_slots.items()):
+            if st.delivered_all or st.retired:
+                continue
+            rows.append({
+                "origin": origin.hex()[:16],
+                "batch_seq": bseq,
+                "age_s": round(now - st.created, 3),
+                "entries": st.nbits,
+                "contents": len(st.contents),
+                "echoed": st.echoed_hash is not None,
+                "delivered": most_bits(st.delivered_bits),
+                "rejected": most_bits(st.rejected_bits),
+                "ready_sent": bin(st.ready_sent_bits).count("1"),
+                "echo_origins": origins(st.echo_votes),
+                "ready_origins": origins(st.ready_votes),
+            })
+        rows.sort(key=lambda r: -r["age_s"])
+        return rows[:limit]
+
     def export_watermarks(self) -> dict:
         """Per-origin max-attested slots, both planes — persisted in the
         store manifest on every flush."""

@@ -33,11 +33,6 @@ from .types import (
     transfer_signing_bytes,
 )
 
-_FINALITY_NOT_PORTED = (
-    "finality certificates (finality/) are not ported yet: ROADMAP.md, "
-    "queue 1, item 7c"
-)
-
 
 @dataclass
 class RetryPolicy:
@@ -203,15 +198,75 @@ class Client:
         return reply.sequence
 
     async def get_certificates(self) -> tuple:
-        """The node's finality-certificate chain tail. Finality
-        certificates (``finality/``) are not ported yet: ROADMAP.md,
-        item 7c."""
-        raise NotImplementedError(_FINALITY_NOT_PORTED)
+        """The node's finality-certificate chain tail.
 
-    async def wait_final(self, sender: bytes, sequence: int, **kwargs):
-        """Block until a finality certificate covers ``sender``'s transfer
-        ``sequence``. Not ported yet: ROADMAP.md, item 7c."""
-        raise NotImplementedError(_FINALITY_NOT_PORTED)
+        Returns ``(enabled, epoch, node_commits, certs)`` where *certs*
+        are decoded ``finality.Certificate`` objects, oldest first.
+        ``enabled`` is False when the node runs without a ``[finality]``
+        table — the other fields are still meaningful (``node_commits``
+        tracks the commit frontier either way).
+        """
+        from .finality import Certificate
+        from .proto import finality_pb2 as fpb
+
+        reply = await self._stub.GetCertificate(fpb.GetCertificateRequest())
+        certs = [Certificate.decode(raw) for raw in reply.certificates]
+        return reply.enabled, reply.epoch, reply.node_commits, certs
+
+    async def wait_final(
+        self,
+        sender: bytes,
+        sequence: int,
+        *,
+        verifier=None,
+        timeout_s: float = 30.0,
+        poll_s: float = 0.25,
+    ) -> "Certificate":
+        """Block until ``sender``'s transfer ``sequence`` is covered by a
+        finality certificate, and return that certificate.
+
+        Two-phase: first poll ``GetLastSequence`` until the node has
+        committed the transfer, noting the node's commit frontier at
+        that instant; then poll ``GetCertificate`` until a certificate
+        whose ``commits`` reaches that frontier arrives — every commit
+        the node had applied (including ours) is inside the certified
+        watermark by the additive-digest contract.
+
+        Pass a ``finality.LightVerifier`` as *verifier* to refuse
+        certificates the client cannot verify itself (stateless
+        trust: f+1 known public keys suffice). Raises ``TimeoutError``
+        when the deadline passes, ``RuntimeError`` when the node runs
+        without finality certificates.
+        """
+        from .finality import Certificate  # noqa: F401  (return type)
+
+        loop = asyncio.get_running_loop()
+        deadline = loop.time() + timeout_s
+        frontier = None
+        while True:
+            if frontier is None:
+                seq = await self.get_last_sequence(sender)
+                if seq >= sequence:
+                    _, _, frontier, _ = await self.get_certificates()
+            if frontier is not None:
+                enabled, _, _, certs = await self.get_certificates()
+                if not enabled:
+                    raise RuntimeError(
+                        "node has no [finality] table; wait_final needs "
+                        "certificate production enabled fleet-side"
+                    )
+                for cert in reversed(certs):
+                    if cert.commits < frontier:
+                        continue
+                    if verifier is not None and not verifier.verify(cert)["ok"]:
+                        continue
+                    return cert
+            if loop.time() >= deadline:
+                raise TimeoutError(
+                    f"no finality certificate covering seq {sequence} "
+                    f"within {timeout_s}s"
+                )
+            await asyncio.sleep(poll_s)
 
     async def get_latest_transactions(self) -> List[FullTransaction]:
         reply = await self._stub.GetLatestTransactions(

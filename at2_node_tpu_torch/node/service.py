@@ -25,10 +25,10 @@ Delivery→commit loop parity (`rpc.rs:149-211`):
 
 ``[plane] shards > 1`` runs the sharded broadcast plane
 (broadcast/shards.py) under the ``inline``, ``thread`` or ``process``
-executor, and ``[store] dir`` the durable sharded store (store/), as in
-the reference. The one subsystem of the reference node not ported yet,
-finality certificates, is left out, and :meth:`Service.start` refuses
-``[finality] enabled`` (ROADMAP.md, queue 1, item 7c). With ``[verifier]
+executor, ``[store] dir`` the durable sharded store (store/) and
+``[finality] enabled`` the quorum certificates (finality/), as in the
+reference. Co-signatures are checked on the host through OpenSSL
+(finality/scheme.py), as the reference's are. With ``[verifier]
 kind = "cuda"`` every client signature goes through the hand-written
 kernel on the card, and so does every payload, Echo and Ready signature
 under the monolithic plane and the ``inline`` and ``thread`` executors;
@@ -63,6 +63,7 @@ from ..broadcast.messages import (
 from ..broadcast.stack import Broadcast
 from ..crypto.keys import verify_one
 from ..crypto.verifier import Verifier
+from ..finality import CertAssembler
 from ..ledger import checkpoint as ckpt
 from ..ledger import history as hist
 from ..ledger.accounts import AccountModificationError, Accounts
@@ -133,24 +134,6 @@ ADMISSION_SOURCES_CAP = 4096
 # is still harmless — the ledger's per-account sequence gate rejects it
 # at commit — so this memory only keeps replays off the broadcast plane.
 DISTILL_SEEN_CAP = 1 << 16
-
-# config switches whose subsystem is not ported yet: (what turns it on,
-# the reference modules it needs), in ROADMAP.md item 7c's order
-_DEFERRED = (
-    (lambda c: c.finality.enabled, "[finality] enabled", "finality/"),
-)
-
-
-def refuse_deferred(config: Config) -> None:
-    """Raise ``NotImplementedError`` naming ROADMAP.md item 7c when the
-    config turns on a subsystem this build has not ported yet."""
-    for on, what, modules in _DEFERRED:
-        if on(config):
-            raise NotImplementedError(
-                f"{what} needs {modules}, not ported yet "
-                "(ROADMAP.md, queue 1, item 7c)"
-            )
-
 
 class _CatchupSession:
     """In-flight catchup state: peers' frontiers and served payloads,
@@ -537,9 +520,24 @@ class Service(At2Servicer):
         # assembler collects kind-16 co-signatures into quorum certs.
         # None when the table is absent/disabled — the subsystem is
         # fully inert and the wire schedule stays byte-identical.
-        # Not ported yet (ROADMAP.md, queue 1, item 7c.3): start()
-        # refuses [finality] enabled, so the assembler stays None here.
-        self.certs = None
+        fin = config.finality
+        self.certs: Optional[CertAssembler] = None
+        if fin.enabled:
+            self.certs = CertAssembler(
+                list(self._node_ranks),
+                epoch=0,
+                scheme=fin.scheme,
+                quorum=fin.quorum,
+                history=fin.history,
+            )
+            self.registry.register_provider("finality_", self.certs.stats)
+            self.registry.gauge(
+                "finality_equivocation",
+                "1 when the assembler holds a latched cert equivocation",
+                fn=lambda: (
+                    1 if self.certs.equivocation is not None else 0
+                ),
+            )
 
     # -- lifecycle --------------------------------------------------------
 
@@ -562,11 +560,7 @@ class Service(At2Servicer):
         factory ``(config, on_frame) -> Mesh``-compatible object replacing
         the real socket mesh, and a switch to skip the gRPC/PortMux
         surface (the sim drives the handlers directly). Defaults preserve
-        production behavior exactly.
-
-        A config that turns on a subsystem not ported yet raises
-        ``NotImplementedError`` before anything starts."""
-        refuse_deferred(config)
+        production behavior exactly."""
         service = Service(config, clock=clock)
         if verifier is not None:
             service.verifier = verifier
@@ -1476,7 +1470,8 @@ class Service(At2Servicer):
         mode, shard workers' shipped recorder events are interleaved
         into the event list by mono timestamp (codes are ``shardN/``-
         prefixed), so one dump reads as one fleet-of-processes
-        timeline."""
+        timeline. ``plane_slots`` lists the batch slots the plane still
+        holds undelivered (a stalled run's part-delivered batches)."""
         dump = self.recorder.dump()
         plane = self._plane_obs()
         if plane is not None:
@@ -1486,10 +1481,13 @@ class Service(At2Servicer):
                 dump["events"] = sorted(
                     dump["events"] + worker_events, key=lambda e: e[0]
                 )
-        return {
+        out = {
             "node": self.config.sign_key.public.hex()[:16],
             "recorder": dump,
         }
+        if self.broadcast is not None:
+            out["plane_slots"] = self.broadcast.part_delivered_batches()
+        return out
 
     def health_verdict(self) -> dict:
         """Liveness + quorum/stall verdict. ``status`` is "ok" only when

@@ -140,12 +140,23 @@ async def run_load(
     retry_budget: int = 0,
     seed: int | None = None,
 ) -> LoadResult:
-    if broker:
-        raise NotImplementedError(
-            "loadgen --broker: the broker ingress tier is not ported yet "
-            "(ROADMAP.md, queue 1, item 7c.5)"
-        )
     keypairs = client_keys(clients, seed)
+    if broker:
+        # Directory warmup: pre-register every client identity so the
+        # measured window ships distilled frames with resolvable ids,
+        # not Register round-trips. The endpoints serve the same at2.AT2
+        # surface either way (the broker proxies reads through), so only
+        # this warmup differs from direct-node mode.
+        async def _register(uri: str, kp: SignKeyPair) -> None:
+            async with Client(uri) as c:
+                await c.register(kp.public)
+
+        await asyncio.gather(
+            *(
+                _register(rpcs[i % len(rpcs)], kp)
+                for i, kp in enumerate(keypairs)
+            )
+        )
     t0 = time.monotonic()
     sent = await asyncio.gather(
         *(
@@ -186,7 +197,9 @@ def main(argv=None) -> int:
                     "SendAsset, reference-parity surface)")
     ap.add_argument("--broker", action="store_true",
                     help="the --rpc endpoints are broker ingress tiers "
-                    "(not ported yet: raises)")
+                    "(tools/broker.py): pre-register every client into "
+                    "the directory, then fire the same load — the broker "
+                    "distills it into SendDistilledBatch frames")
     ap.add_argument("--retry-budget", type=int, default=0,
                     help="retries per call for RESOURCE_EXHAUSTED sheds "
                     "(jittered exponential backoff honoring the server's "

@@ -149,7 +149,36 @@ is printed):
        its restart went live): a launch a batch, at least one a node.
    Every server of every run exits 0 on SIGTERM and leaves no ring in
    ``/dev/shm``.
-10. One JSON line describing the kernels (their times and bound at every
+10. Finality certificates and the broker ingress tier (BASELINE config 3,
+   run right after phase 9): phase 6's net with ``[finality] enabled =
+   true`` (``audit_every`` at its default, 256).
+   10a. Run A (the same seed and size). Then, within 10 s,
+       ``Client.wait_final`` through node 1 returns a certificate that
+       an f+1 ``LightVerifier`` of the four sign keys (read from the
+       TOMLs) accepts and that reaches the node's frontier; every node's
+       ``/certz`` chain is polled until its newest certificate covers the
+       node's commit frontier (the certificate lag is printed). Checks:
+       phase 6's checks of run A; on every node a non-empty chain, its
+       newest certificate at the node's committed count, the four newest
+       certificates at the same commits with one preimage,
+       ``verify_chain`` ok under the f+1 and the full light client and
+       refused by the full one (and by one that needs every signer) once
+       a co-signature byte is flipped, ``finality_equivocation`` 0.
+   10b. ``tools/broker.py`` as a process in front of node 0
+       (``--max-entries 1024``); ``tools/loadgen.py`` ``run_load(...,
+       broker=True)`` with 16 seeded clients x 256 transfers through it,
+       then 16 transfers with a flipped signature byte through the
+       broker's gRPC surface. Checks: every node commits the 4,096 and
+       equals the python-int replay, no tampered transfer commits, node
+       0 refuses the 16 at ingress, took distilled batches and launched
+       the verify kernel a batch (as every node did), the broker
+       forwarded 4,096 + 16 entries and its ``/healthz`` says ``role =
+       broker``, ``trace_collect.stitch`` over the four nodes' and the
+       broker's ``/tracez`` joins transfers across the broker hop, the
+       chains verify again, and ``tools/top.py --once`` over the nodes
+       and the broker exits 0 with its ``final`` column. Every server
+       exits 0 on SIGTERM, the broker 0 on SIGINT.
+11. One JSON line describing the kernels (their times and bound at every
    shape, every main-path run, the ptxas figures), then the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -1611,7 +1640,7 @@ async def node_run(net: ServerNet, label: str, clients: list, transfers: list, b
     wall = t_last - t0
     await check_sequences(net, clients, want_seq)
     return {"label": label, "wall_s": wall, "tx_per_s": n_sigs / wall, "transfers": n_sigs,
-            "clients": len(clients),
+            "clients": len(clients), "t_last": t_last,
             "sign_s": sign_s, "submit_s": submit_s, "refused": refused, "before": before}
 
 
@@ -1933,6 +1962,41 @@ def wal_records(store_dir: str) -> int:
     return sum(1 for _ in replay(os.path.join(store_dir, doc["wal"])))
 
 
+STALL_KEYS = ("committed", "pending", "slots_undelivered", "inbox_depth", "delivered", "batch_rx",
+              "batch_entries_delivered", "retransmits", "slots_dropped", "slots_retired",
+              "poison_resolved", "entry_evictions", "invalid_sig")
+
+
+async def stall_report(net: ServerNet, clients: list, want: int, label: str, store_dirs=None) -> None:
+    """What a run that stopped short leaves to read, logged before it
+    fails: each node's plane block and broadcast counters, its commit
+    heap, the batch slots its plane still holds part-delivered
+    (``/debugz`` ``plane_slots``), the clients it holds short of
+    sequence ``want`` and the watermarks its store last flushed."""
+    from at2_node_tpu_torch.client import Client
+    from at2_node_tpu_torch.store.manifest import read_manifest
+
+    for i in range(net.n):
+        try:
+            status = net.statusz(i)
+            slots = json.loads(net.get(i, "/debugz")).get("plane_slots")
+            async with Client(f"http://127.0.0.1:{net.rpc_ports[i]}") as conn:
+                seqs = await asyncio.gather(*(conn.get_last_sequence(kp.public) for kp in clients))
+        except Exception as exc:  # a dead node: report what the others hold
+            log(f"{label} stall, node {i}: unreachable ({exc!r})")
+            continue
+        st = status["stats"]
+        log(f"{label} stall, node {i}: plane {json.dumps(status.get('plane'), sort_keys=True)}; "
+            + ", ".join(f"{k} {st.get(k)}" for k in STALL_KEYS))
+        log(f"{label} stall, node {i}: clients short of sequence {want} (client: sequence) "
+            f"{ {c: s for c, s in enumerate(seqs) if s != want} }")
+        log(f"{label} stall, node {i}: part-delivered batch slots {json.dumps(slots, sort_keys=True)}")
+        if store_dirs is not None:
+            doc = read_manifest(store_dirs[i])
+            log(f"{label} stall, node {i}: store watermarks (last flush) "
+                f"{json.dumps(doc.get('watermarks') if doc else None, sort_keys=True)}")
+
+
 async def restart_run(net: ServerNet, clients: list, rng, first_seq: int, per_client: int,
                       store0: str, card_line: str) -> dict:
     """9c: a quarter of run A's traffic. Its first half, but for the last
@@ -2109,8 +2173,13 @@ async def plane_store_path(seed: int, by_lanes, card, card_line: str, kind: str 
                         f"{net.n} nodes, node 0 included")
                     name = "plane_store_restart"
                 else:
-                    res = await node_run(net, label, clients, run_a, True, {}, per_batched,
-                                         NET_DEADLINE_S)
+                    try:
+                        res = await node_run(net, label, clients, run_a, True, {}, per_batched,
+                                             NET_DEADLINE_S)
+                    except RuntimeError:
+                        await stall_report(net, clients, per_batched, label,
+                                           [os.path.join(workdir, f"store{i}") for i in range(net.n)])
+                        raise
                     res = node_checks(net, res, by_lanes, card, kind, Counter())
                     await check_replay(net, clients, run_a)
                     busy = [p["kernel_busy_share"] for p in res["nodes"]]
@@ -2127,6 +2196,303 @@ async def plane_store_path(seed: int, by_lanes, card, card_line: str, kind: str 
             check(rcs == [0] * net.n, f"{label}: servers exited with {rcs} on SIGTERM")
             left = rings_of(owners)
             check(not left, f"{label}: rings left in /dev/shm after shutdown: {left}")
+    return out
+
+
+# -- phase 10 --------------------------------------------------------------
+
+
+BROKER_PER_CLIENT = 256  # 10b: transfers a client through the broker
+BROKER_MAX_ENTRIES = 1024  # the broker's --max-entries
+CERT_DEADLINE_S = 30.0  # a certificate covers a node's frontier within this
+WAIT_FINAL_S = 10.0  # Client.wait_final's timeout through node 1
+
+
+def node_sign_keys(net: ServerNet) -> list:
+    """The nodes' public sign keys, read from their TOMLs: what a light
+    client knows from the genesis config, not from any node's answer."""
+    from at2_node_tpu_torch.node.config import Config
+
+    keys = []
+    for path in net.tomls:
+        with open(path) as f:
+            keys.append(Config.loads(f.read()).sign_key.public)
+    return keys
+
+
+def certz(net: ServerNet, i: int) -> tuple:
+    """Node i's ``/certz``: the document and its chain as Certificates."""
+    from at2_node_tpu_torch.finality import Certificate
+
+    doc = json.loads(net.get(i, "/certz"))
+    return doc, [Certificate.from_doc(c) for c in doc["chain"]]
+
+
+def certificate_lag(net: ServerNet, t_last: float, label: str) -> list:
+    """Poll every node's ``/certz`` (every NODE_POLL_S) until its newest
+    certificate covers its commit frontier; each node's seconds from
+    ``t_last`` (the poll that saw the run's last commit) to the poll that
+    saw that certificate."""
+    lag = [None] * net.n
+    t_end = time.perf_counter() + CERT_DEADLINE_S
+    while None in lag:
+        for i in range(net.n):
+            if lag[i] is None:
+                doc, chain = certz(net, i)
+                if chain and chain[-1].commits >= doc["commits"]:
+                    lag[i] = time.perf_counter() - t_last
+        if None in lag:
+            check(time.perf_counter() < t_end,
+                  f"{label}: nodes {[i for i in range(net.n) if lag[i] is None]} hold no certificate "
+                  f"covering their frontier {CERT_DEADLINE_S} s after the last commit")
+            time.sleep(NODE_POLL_S)
+    return lag
+
+
+def finality_checks(net: ServerNet, keys: list, rng, label: str) -> dict:
+    """Every node's chain: non-empty, its newest certificate at the node's
+    commit frontier, the four newest certificates alike (one preimage),
+    ``verify_chain`` ok under an f+1 light client of the genesis keys and
+    under the full member list, refused by both once one co-signature
+    byte of the newest certificate is flipped; no equivocation latched."""
+    import dataclasses
+
+    from at2_node_tpu_torch.finality import LightVerifier, verify_chain
+
+    subset = LightVerifier(keys, total=net.n)
+    full = LightVerifier([], members=keys)
+    newest, lengths = [], []
+    for i in range(net.n):
+        doc, chain = certz(net, i)
+        check(chain, f"{label} node {i}: empty certificate chain")
+        check(chain[-1].commits == doc["commits"] == net.committed(i),
+              f"{label} node {i}: newest certificate at {chain[-1].commits} commits, frontier "
+              f"{doc['commits']}, committed {net.committed(i)}")
+        for name, verifier in (("f+1", subset), ("full", full)):
+            verdict = verify_chain(chain, verifier)
+            check(verdict["ok"], f"{label} node {i}: {name} light client refuses the chain: {verdict}")
+        sigs = bytearray(chain[-1].sigs)
+        sigs[int(rng.integers(0, len(sigs)))] ^= 1 << int(rng.integers(0, 8))
+        mutant = chain[:-1] + [dataclasses.replace(chain[-1], sigs=bytes(sigs))]
+        strict = LightVerifier(keys, threshold=chain[-1].signer_count())
+        for name, verifier in (("full", full), ("every-signer", strict)):
+            check(not verify_chain(mutant, verifier)["ok"],
+                  f"{label} node {i}: the {name} light client accepts a flipped co-signature byte")
+        check(doc["equivocation"] is None, f"{label} node {i}: equivocation {doc['equivocation']}")
+        eq = net.metrics(i)["at2_finality_equivocation"]
+        check(eq == 0, f"{label} node {i}: finality_equivocation {eq}")
+        newest.append(chain[-1])
+        lengths.append(len(chain))
+    check(len({c.commits for c in newest}) == 1 and len({c.preimage() for c in newest}) == 1,
+          f"{label}: the newest certificates differ: {[(c.commits, c.wm_digest.hex()[:12]) for c in newest]}")
+    return {"chain_len": lengths, "commits": newest[0].commits, "signers": [c.signer_count() for c in newest]}
+
+
+def start_broker(net: ServerNet, workdir: str):
+    """``tools/broker.py`` in front of node 0, as a process: its URL and
+    the process once its port accepts."""
+    port = free_ports(1)[0]
+    argv = [sys.executable, "-m", "at2_node_tpu_torch.tools.broker",
+            "--node", f"http://127.0.0.1:{net.rpc_ports[0]}", "--listen", f"127.0.0.1:{port}",
+            "--max-entries", str(BROKER_MAX_ENTRIES)]
+    with open(os.path.join(workdir, "broker.log"), "w") as out:
+        proc = subprocess.Popen(argv, stdout=out, stderr=subprocess.STDOUT, env=checkout_env())
+    t_end = time.perf_counter() + 60.0
+    while not ServerNet._accepts(port):
+        check(proc.poll() is None, f"the broker exited with {proc.returncode}")
+        check(time.perf_counter() < t_end, "the broker's port never came up")
+        time.sleep(0.05)
+    return f"127.0.0.1:{port}", proc
+
+
+def http_json(addr: str, path: str) -> dict:
+    """GET ``path`` of the HTTP surface at ``addr`` as JSON (a 503 body too)."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(f"http://{addr}{path}", timeout=30) as r:
+            return json.loads(r.read())
+    except urllib.error.HTTPError as exc:
+        return json.loads(exc.read())
+
+
+async def broker_run(net: ServerNet, broker: str, seed: int, rng, n_clients: int, per_client: int,
+                     n_tampered: int) -> dict:
+    """10b: ``tools/loadgen.py`` through the broker (``broker=True``,
+    seeded clients, self-transfers of 1), then ``n_tampered`` transfers
+    with a flipped signature byte through the broker's gRPC surface, at
+    sequences no valid transfer takes."""
+    import grpc
+
+    from at2_node_tpu_torch.proto import at2_pb2 as pb
+    from at2_node_tpu_torch.proto.rpc import At2Stub
+    from at2_node_tpu_torch.tools import loadgen
+    from at2_node_tpu_torch.types import transfer_signing_bytes
+
+    total = n_clients * per_client
+    clients = loadgen.client_keys(n_clients, seed)
+    before = [net.statusz(i) for i in range(net.n)]
+    rejected0 = net.metrics(0)["at2_rejected_at_ingress_total"]
+    t0 = time.perf_counter()
+    load = await loadgen.run_load([f"http://{broker}"], clients=n_clients, tx_per_client=per_client,
+                                  broker=True, seed=seed, commit_timeout=NET_DEADLINE_S)
+    check(load.submitted == load.committed == total,
+          f"broker run: {load.submitted} submitted, {load.committed} of {total} committed")
+    t_last = wait_committed(net, [b["stats"]["committed"] + total for b in before], NET_DEADLINE_S)
+    wall = t_last - t0
+    tampered = []
+    for k in range(n_tampered):
+        c = k % n_clients
+        seq = per_client + 1 + k // n_clients
+        recipient = clients[(c + 1) % n_clients].public
+        sig = bytearray(clients[c].sign(transfer_signing_bytes(clients[c].public, seq, recipient, 1)))
+        sig[int(rng.integers(0, 64))] ^= 1 << int(rng.integers(0, 8))
+        tampered.append(pb.SendAssetRequest(sender=clients[c].public, sequence=seq,
+                                            recipient=recipient, amount=1, signature=bytes(sig)))
+    async with grpc.aio.insecure_channel(broker) as channel:
+        stub = At2Stub(channel)
+        for req in tampered:
+            await stub.SendAsset(req)  # the broker takes it: only the node verifies
+    t_end = time.perf_counter() + 10.0
+    while net.metrics(0)["at2_rejected_at_ingress_total"] < rejected0 + n_tampered:
+        check(time.perf_counter() < t_end,
+              f"broker run: node 0 refused {net.metrics(0)['at2_rejected_at_ingress_total'] - rejected0} "
+              f"of {n_tampered} tampered transfers in 10 s")
+        await asyncio.sleep(NODE_POLL_S)
+    return {"clients": clients, "transfers": total, "wall_s": wall, "tx_per_s": total / wall,
+            "loadgen_tx_per_s": load.committed_tx_per_sec, "loadgen_commit_s": load.commit_seconds,
+            "t_last": t_last, "before": before,
+            "rejected": net.metrics(0)["at2_rejected_at_ingress_total"] - rejected0}
+
+
+async def finality_broker_path(seed: int, by_lanes, card, card_line: str, kind: str = "cuda",
+                               n_clients: int = NET_CLIENTS, per_batched: int = NET_PER_CLIENT_BATCHED,
+                               broker_per_client: int = BROKER_PER_CLIENT,
+                               n_tampered: int = NODE_TAMPERED) -> dict:
+    """Phase 10: phase 6's net with ``[finality] enabled`` (10a: run A,
+    then the certificates), then a broker in front of node 0 (10b)."""
+    import tempfile
+
+    from at2_node_tpu_torch.client import Client
+    from at2_node_tpu_torch.finality import LightVerifier
+    from at2_node_tpu_torch.tools.trace_collect import stitch
+
+    rng = np.random.default_rng(seed + 6)  # phase 6's: the same clients and run A
+    clients, run_a, _, _ = node_traffic(rng, n_clients, per_batched, NET_PER_CLIENT_PER_TX, NODE_TAMPERED)
+    rng = np.random.default_rng(seed + 10)
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="at2-phase10-") as workdir:
+        net = ServerNet(kind, workdir, tables=lambda i: "[finality]\nenabled = true\n")
+        broker_proc = None
+        t0 = time.perf_counter()
+        try:
+            net.start(deadline_s=180.0)
+            keys = node_sign_keys(net)
+            label = "finality node net (10a, SendAssetBatch)"
+            log(f"{label}: {net.n} `server run` processes, [finality] enabled = true, audit_every 256 "
+                f"(the default), up and meshed in {time.perf_counter() - t0:.1f} s")
+            run = await node_run(net, label, clients, run_a, True, {}, per_batched, NET_DEADLINE_S)
+            # a wallet's light client: the four genesis sign keys, any
+            # f + 1 = 2 valid co-signatures
+            light = LightVerifier(keys, total=net.n)
+            t_final = time.perf_counter()
+
+            async def wait_final():
+                async with Client(f"http://127.0.0.1:{net.rpc_ports[1]}") as conn:
+                    cert = await conn.wait_final(clients[0].public, per_batched, verifier=light,
+                                                 timeout_s=WAIT_FINAL_S)
+                    _, _, frontier, _ = await conn.get_certificates()
+                return cert, frontier, time.perf_counter() - t_final
+
+            (cert, frontier, final_s), lag = await asyncio.gather(
+                wait_final(), asyncio.to_thread(certificate_lag, net, run["t_last"], label))
+            check(cert.commits >= run["transfers"],
+                  f"{label}: wait_final returned a certificate at {cert.commits} commits")
+            res = node_checks(net, run, by_lanes, card, kind, Counter())
+            await check_replay(net, clients, run_a)
+            fin = finality_checks(net, keys, rng, label)
+            res.update(certificate_lag_s=lag, wait_final_s=final_s, finality=fin)
+            log(f"{label}: {res['tx_per_s']:,.0f} tx/s committed with [finality] enabled; certificate "
+                f"lag (last commit to the certificate covering it) {[round(x, 3) for x in lag]} s a node; "
+                f"chains of {fin['chain_len']} certificates, the newest at {fin['commits']} commits with "
+                f"{fin['signers']} signers, one preimage on all {net.n} nodes, verified by an f+1 and a "
+                f"full light client and refused with one co-signature byte flipped; Client.wait_final "
+                f"through node 1 returned a certificate at {cert.commits} commits (frontier {frontier}) "
+                f"in {final_s:.3f} s; verify kernel launches a node {[p['launches'] for p in res['nodes']]}; "
+                f"{card_line}")
+            out["net_finality"] = res
+
+            label = "broker node net (10b, loadgen --broker)"
+            broker, broker_proc = start_broker(net, workdir)
+            b = await broker_run(net, broker, seed + 11, rng, n_clients, broker_per_client, n_tampered)
+            lag_b = certificate_lag(net, b["t_last"], label)
+            check(b["rejected"] == n_tampered,
+                  f"{label}: node 0 refused {b['rejected']} of {n_tampered} tampered transfers")
+            await check_sequences(net, b["clients"], broker_per_client)
+            await check_replay(net, b["clients"], [[(seq, kp.public, 1) for seq in
+                                                   range(1, broker_per_client + 1)] for kp in b["clients"]])
+            await check_replay(net, clients, run_a)
+            k1 = [launches_since(net, i, b["before"][i], label) for i in range(net.n)]
+            st0, st = b["before"][0]["stats"], net.stats(0)
+            distilled = st["distilled_batches_rx"] - st0["distilled_batches_rx"]
+            check(distilled > 0, f"{label}: node 0 took no distilled batch")
+            bstat = http_json(broker, "/statusz")
+            health = http_json(broker, "/healthz")
+            check(bstat["stats"]["broker_entries_tx"] == b["transfers"] + n_tampered,
+                  f"{label}: the broker forwarded {bstat['stats']['broker_entries_tx']} entries, "
+                  f"not {b['transfers'] + n_tampered}")
+            check(health["role"] == "broker" and health["status"] == "ok", f"{label}: broker /healthz {health}")
+            dumps = [json.loads(net.get(i, "/tracez")) for i in range(net.n)] + [http_json(broker, "/tracez")]
+            stitched = stitch(dumps)
+            check(stitched["coverage"]["with_broker"] >= 1,
+                  f"{label}: no transfer stitched across the broker hop: {stitched['coverage']}")
+            fin_b = finality_checks(net, keys, rng, label)
+            top = subprocess.run(
+                [sys.executable, "-m", "at2_node_tpu_torch.tools.top", "--once", "--no-clear",
+                 "--cert-lag-deadline", "0", *[f"127.0.0.1:{p}" for p in net.rpc_ports], broker],
+                capture_output=True, text=True, env=checkout_env(), timeout=120)
+            check(top.returncode == 0 and "final" in top.stdout,
+                  f"{label}: top.py --once exited {top.returncode}: {top.stdout[-2000:]} {top.stderr[-2000:]}")
+            hop = stitched.get("broker_hop", {}).get("segments", {})
+            log(f"{label}: {b['transfers']} transfers from {n_clients} clients through the broker "
+                f"(--max-entries {BROKER_MAX_ENTRIES}) committed on all {net.n} nodes in "
+                f"{b['wall_s']:.3f} s = {b['tx_per_s']:,.0f} tx/s (loadgen's own window, after its "
+                f"directory warm-up, to node 0 through the broker: {b['loadgen_tx_per_s']:,.0f} tx/s); "
+                f"node 0 took {distilled} distilled batches and refused the {n_tampered} tampered "
+                f"transfers; verify kernel launches a node {[x['launches'] for x in k1]} (= batches "
+                f"{[x['batches'] for x in k1]}); the broker forwarded {bstat['stats']['broker_entries_tx']} "
+                f"entries in {bstat['stats']['broker_batches_tx']} frames; {stitched['coverage']['with_broker']} "
+                f"transfers stitched across the broker hop; certificate lag {[round(x, 3) for x in lag_b]} s "
+                f"a node; {card_line}")
+            log(f"{label}: broker hop segments {json.dumps(hop, sort_keys=True)}")
+            log(f"{label}: top.py --once exited 0:")
+            for line in top.stdout.rstrip().splitlines():
+                log("  " + line)
+            out["net_broker"] = {
+                "launches": sum(x["launches"] for x in k1), "tx_per_s": b["tx_per_s"],
+                "wall_s": b["wall_s"], "transfers": b["transfers"],
+                "loadgen_tx_per_s": b["loadgen_tx_per_s"], "distilled_batches": distilled,
+                "rejected": b["rejected"], "nodes": k1, "certificate_lag_s": lag_b,
+                "broker_entries_tx": bstat["stats"]["broker_entries_tx"],
+                "broker_batches_tx": bstat["stats"]["broker_batches_tx"],
+                "with_broker": stitched["coverage"]["with_broker"], "finality": fin_b,
+            }
+        finally:
+            brc = None
+            if broker_proc is not None:
+                import signal
+
+                broker_proc.send_signal(signal.SIGINT)
+                try:
+                    brc = broker_proc.wait(timeout=60)
+                except subprocess.TimeoutExpired:
+                    broker_proc.kill()
+                    brc = broker_proc.wait()
+            rcs = net.stop()
+        check(rcs == [0] * net.n, f"phase 10: servers exited with {rcs} on SIGTERM")
+        check(broker_proc is None or brc == 0, f"phase 10: the broker exited with {brc} on SIGINT")
+        log("phase 10: every server exited 0 on SIGTERM, the broker 0 on SIGINT")
     return out
 
 
@@ -2379,6 +2745,13 @@ def main() -> None:
         f"{planes['plane_store_process']['tx_per_s']:,.0f} tx/s, against "
         f"{nodes['node_grpc_batched']['tx_per_s']:,.0f} tx/s for phase 6's run A ([plane] shards = 1, "
         f"no store) in this call; phase 9 took {time.perf_counter() - t9:.1f} s; {card}")
+    t10 = time.perf_counter()
+    finality = asyncio.run(finality_broker_path(args.seed, times, device_name, card))
+    log(f"finality and broker node net: [finality] enabled {finality['net_finality']['tx_per_s']:,.0f} "
+        f"tx/s (SendAssetBatch), through the broker {finality['net_broker']['tx_per_s']:,.0f} tx/s "
+        f"(loadgen --broker, unary SendAsset distilled into SendDistilledBatch), against "
+        f"{nodes['node_grpc_batched']['tx_per_s']:,.0f} tx/s for phase 6's run A in this call; phase 10 "
+        f"took {time.perf_counter() - t10:.1f} s; {card}")
     rlc_nodes = asyncio.run(node_path(args.seed, times, device_name, mode="rlc",
                                       per_unary=NODE_RLC_PER_UNARY))
     log(f"rlc node net (SendAssetBatch): {rlc_nodes['rlc_node_grpc_batched']['tx_per_s']:,.0f} tx/s "
@@ -2401,6 +2774,7 @@ def main() -> None:
     runs.update(net)
     runs.update(nodes)
     runs.update(planes)
+    runs.update(finality)
     top = kp["by_lanes"][65536]
     kernels = [{
         "name": "ed25519_verify",

@@ -1,10 +1,9 @@
 """The port's node configuration against the JAX package's: a TOML the
 reference writes loads in the port and dumps byte-equal (and back), the
 verifier kinds map onto this build's (``"cuda"`` for ``"tpu"``; ``"pool"``
-as written), a config that turns on a subsystem not ported yet is
-refused at ``Service.start``, naming its ROADMAP item, and a port
-``Service`` starts with ``[plane] shards = 2`` under each executor and with
-``[store] dir``, reports them on ``/statusz`` and stops cleanly.
+as written), and a port ``Service`` starts with ``[plane] shards = 2``
+under each executor, with ``[store] dir`` and with ``[finality] enabled``,
+reports them on ``/statusz`` (and ``/certz``) and stops cleanly.
 """
 
 import asyncio
@@ -132,16 +131,43 @@ def _port_config(**tables):
     return cfg
 
 
-@pytest.mark.parametrize(
-    "tables,what",
-    [
-        ({"finality": dict(enabled=True)}, r"\[finality\] enabled"),
-    ],
-)
-def test_deferred_tables_raise_at_start_naming_their_item(tables, what):
-    cfg = _port_config(**tables)
-    with pytest.raises(NotImplementedError, match=what + r".*item 7c"):
-        asyncio.run(Service.start(cfg))
+def test_finality_table_starts_and_serves_certz():
+    """``[finality] enabled`` with ``quorum = 3``, refused until finality
+    was ported, now starts a node: the assembler holds the two members
+    (this node and its one peer), caps the quorum at them, and ``/certz``,
+    ``/statusz`` and ``/metrics`` serve its state; the node's own
+    co-signature alone does not reach the quorum."""
+    import json
+    import urllib.request
+
+    import chip_smoke
+
+    rng = np.random.default_rng(13)
+    node, rpc = chip_smoke.free_ports(2)
+    cfg = _port_config(finality=dict(enabled=True, quorum=3))
+    cfg.node_address, cfg.rpc_address = f"127.0.0.1:{node}", f"127.0.0.1:{rpc}"
+    cfg.sign_key, cfg.network_key = SignKeyPair(rng.bytes(32)), ExchangeKeyPair(rng.bytes(32))
+    cfg.verifier = port_config.VerifierConfig(kind="cpu")
+
+    def get(path):
+        with urllib.request.urlopen(f"http://{cfg.rpc_address}{path}", timeout=10) as r:
+            return r.read().decode()
+
+    async def run():
+        service = await Service.start(cfg)
+        try:
+            service._emit_beacon()  # co-sign the current frontier
+            doc = json.loads(await asyncio.to_thread(get, "/certz"))
+            assert doc["quorum"] == 2 and doc["scheme"] == "multi_eddsa" and doc["epoch"] == 0
+            assert doc["members"] == sorted([cfg.sign_key.public.hex(), cfg.nodes[0].sign_public.hex()])
+            assert doc["chain"] == [] and doc["equivocation"] is None
+            fin = service.statusz()["finality"]
+            assert fin["enabled"] and fin["cosigs"] == 1 and fin["pending"] == 1
+            assert "at2_finality_equivocation 0" in await asyncio.to_thread(get, "/metrics")
+        finally:
+            await service.close()
+
+    asyncio.run(run())
 
 
 @pytest.mark.parametrize(

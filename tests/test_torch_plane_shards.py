@@ -606,3 +606,40 @@ def test_plane_worker_imports_leave_torch_out():
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, env=env, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+# -- where a stalled run stopped ------------------------------------------------
+
+
+async def test_debugz_lists_part_delivered_batch_slots():
+    """``/debugz`` ``plane_slots``: the batch slots a plane still holds
+    with no content fully delivered, each with its shard, entries and the
+    entries delivered and rejected here; a fully delivered or retired
+    slot is not listed, and a net that committed everything lists none."""
+    from at2_node_tpu_torch.broadcast.stack import _BatchState
+
+    services = [await Service.start(c) for c in _net_configs(3, 25, shards=2, executor="thread")]
+    try:
+        senders = _spread_keys(21, 4)
+        for kp in senders:
+            await services[0].broadcast.broadcast(_payload(kp, 1))
+        await _wait(lambda: all(s.committed >= 4 for s in services), "commits through the thread plane")
+        await _wait(lambda: all(s.debugz()["plane_slots"] == [] for s in services), "no slot held")
+        plane = services[1].broadcast
+        now = plane.clock.monotonic()
+        held, done, retired = _BatchState(now - 2.0), _BatchState(now), _BatchState(now)
+        held.nbits, held.delivered_bits, held.rejected_bits = 8, {b"h": 0b1011}, {b"h": 0b100}
+        done.delivered_all = True
+        retired.retired = True
+        plane._cores[1]._batch_slots[(b"\x07" * 32, 9)] = held
+        plane._cores[0]._batch_slots[(b"\x08" * 32, 1)] = done
+        plane._cores[0]._batch_slots[(b"\x09" * 32, 1)] = retired
+        (row,) = services[1].debugz()["plane_slots"]
+        assert row["shard"] == 1 and row["origin"] == "07" * 8 and row["batch_seq"] == 9
+        assert (row["entries"], row["delivered"], row["rejected"]) == (8, 3, 1)
+        assert row["age_s"] >= 2.0 and row["echoed"] is False
+        for core, key in ((1, (b"\x07" * 32, 9)), (0, (b"\x08" * 32, 1)), (0, (b"\x09" * 32, 1))):
+            del plane._cores[core]._batch_slots[key]
+    finally:
+        for s in services:
+            await s.close()

@@ -1,6 +1,7 @@
 """BASELINE config 5's tools in the port, on the CPU: ``tools/scale_demo.py``
 (a pool of ``["cpu"] * 2`` behind a 4-node net, and the replay) with the
-reference artifact's keys, its helpers, ``tools/loadgen.py``'s refusals,
+reference artifact's keys, its helpers, ``tools/loadgen.py`` (through a
+broker too),
 ``tools/_common.py``'s seeded nets, ``config new --verifier pool``, and
 the entry (``entry.py``) against the repository's ``__graft_entry__.py``.
 """
@@ -156,9 +157,34 @@ def test_seeded_net_configs():
         _common.parse_addr("no-port")
 
 
-async def test_loadgen_broker_is_not_ported():
-    with pytest.raises(NotImplementedError, match="7c.5"):
-        await loadgen.run_load(["http://127.0.0.1:1"], clients=1, tx_per_client=1, broker=True)
+async def test_loadgen_through_a_broker_commits_every_transfer():
+    """``run_load(..., broker=True)``: the clients' directory warm-up, then
+    every transfer through a port broker in front of one in-process port
+    node, distilled into ``SendDistilledBatch`` frames and committed."""
+    from at2_node_tpu_torch.broker import Broker
+    from at2_node_tpu_torch.node.config import VerifierConfig
+    from at2_node_tpu_torch.node.service import Service
+
+    (cfg,) = _common.make_net_configs(1, iter(chip_smoke.free_ports(2)), seed=5,
+                                      verifier=VerifierConfig(kind="cpu"))
+    service = await Service.start(cfg)
+    addr = f"127.0.0.1:{chip_smoke.free_ports(1)[0]}"
+    broker = await Broker.start(f"http://{cfg.rpc_address}", addr, max_entries=32)
+    try:
+        res = await loadgen.run_load([f"http://{addr}"], clients=4, tx_per_client=12, broker=True,
+                                     seed=6, commit_timeout=30.0)
+        assert res.submitted == res.committed == 48
+        keys = loadgen.client_keys(4, seed=6)
+        # the warm-up registered every client through the broker, so the
+        # load itself needed no Register round-trip of the broker's own
+        assert sorted(broker._ids) == sorted(k.public for k in keys)
+        assert broker.stats["broker_registrations"] == 0
+        assert broker.stats["broker_entries_tx"] == 48
+        assert service.distill_stats["distilled_batches_rx"] == broker.stats["broker_batches_tx"] >= 2
+        assert [await service.accounts.get_last_sequence(k.public) for k in keys] == [12] * 4
+    finally:
+        await broker.close()
+        await service.close()
 
 
 def test_config_new_writes_the_pool_kind():

@@ -534,14 +534,40 @@ async def _crash(service) -> None:
     await service.verifier.close()
 
 
-async def _wait(pred, what, timeout=TIMEOUT):
+async def _wait(pred, what, timeout=TIMEOUT, report=None):
+    """Await ``pred()`` until it holds; past ``timeout`` print
+    ``report()``'s lines, then fail."""
     loop = asyncio.get_running_loop()
     deadline = loop.time() + timeout
     while loop.time() < deadline:
         if await pred():
             return
         await asyncio.sleep(0.1)
+    if report is not None:
+        for line in report():
+            print(line)
     raise TimeoutError(f"{what} not reached within {timeout} s")
+
+
+def _stall_report(services) -> list:
+    """Where a net that stopped short stopped, node by node: the plane
+    block and broadcast counters, the commit heap, the part-delivered
+    batch slots and the watermarks (live, and as the store last
+    flushed them)."""
+    lines = []
+    for i, s in enumerate(services):
+        if s._closing:
+            lines.append(f"node {i}: down")
+            continue
+        snap = s.registry.snapshot()
+        lines.append(f"node {i}: plane {s.broadcast.plane_info()}; "
+                     + ", ".join(f"{k} {snap.get(k)}" for k in chip_smoke.STALL_KEYS))
+        heap = sorted((p.sender.hex()[:12], p.sequence) for *_, p in s._heap)[:16]
+        lines.append(f"node {i}: commit heap {len(s._heap)} {heap}")
+        lines.append(f"node {i}: part-delivered batch slots {s.broadcast.part_delivered_batches()}")
+        lines.append(f"node {i}: watermarks live {s.broadcast.export_watermarks()}, "
+                     f"store {s.store.watermarks if s.store is not None else None}")
+    return lines
 
 
 @pytest.fixture
@@ -619,13 +645,15 @@ async def test_sharded_durable_net_killed_and_restarted_equals_replay(tmp_path, 
         # the first half broadcast and committed by the others (an
         # acknowledged transfer that node 0 never broadcast would be lost
         # with it, as in the reference)
-        await _wait(await committed_on([1, 2, 3], 2), "nodes 1-3 commit the first half")
+        await _wait(await committed_on([1, 2, 3], 2), "nodes 1-3 commit the first half",
+                    report=lambda: _stall_report(services))
         await _wait(lambda: asyncio.sleep(0, result=services[0]._delivery_task.done()),
                     "node 0's commit path dies at the injected crash")
         assert isinstance(services[0]._delivery_task.exception(), InjectedCrash)
         await _crash(services[0])
         await asyncio.gather(*(send(1 + c % 3, c, per_client[c][2:]) for c in range(4)))
-        await _wait(await committed_on([1, 2, 3], 4), "nodes 1-3 commit with node 0 down")
+        await _wait(await committed_on([1, 2, 3], 4), "nodes 1-3 commit with node 0 down",
+                    report=lambda: _stall_report(services))
         # the records node 0 appended before it died (payloads parked at
         # its sequence gate, commits) are durable: in its WAL, or folded by
         # a flush into the manifest (parked) and the segments (commits)
@@ -642,7 +670,8 @@ async def test_sharded_durable_net_killed_and_restarted_equals_replay(tmp_path, 
         # one more transfer a client exposes any gap left to catchup
         nudge = [[(5, clients[(c + 1) % 4].public, 1)] for c in range(4)]
         await asyncio.gather(*(send(c % 4, c, nudge[c]) for c in range(4)))
-        await _wait(await committed_on(range(4), 5), "every node at the last sequence")
+        await _wait(await committed_on(range(4), 5), "every node at the last sequence",
+                    report=lambda: _stall_report(services))
         await _wait(lambda: asyncio.sleep(0, result=services[0].recovery.state == "live"),
                     "node 0 live again")
         ledger = _replay([per_client[c] + nudge[c] for c in range(4)], clients)

@@ -307,7 +307,17 @@ class CertAssembler:
             ),
         )
         self.counters["assembled"] += 1
-        self.chain.append(cert)
+        # A quorum for an older audit point can complete after a newer
+        # one did (co-signatures arrive in any order). Insert it in
+        # (epoch, commits) order, so the served chain never rolls
+        # progress back (verify_chain) and ``latest`` stays the newest.
+        at = len(self.chain)
+        while at and (
+            (self.chain[at - 1].epoch, self.chain[at - 1].commits)
+            > (cert.epoch, cert.commits)
+        ):
+            at -= 1
+        self.chain.insert(at, cert)
         del self.chain[: -self.history]
         return cert
 

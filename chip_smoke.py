@@ -178,7 +178,36 @@ is printed):
        chains verify again, and ``tools/top.py --once`` over the nodes
        and the broker exits 0 with its ``final`` column. Every server
        exits 0 on SIGTERM, the broker 0 on SIGINT.
-11. One JSON line describing the kernels (their times and bound at every
+11. The deterministic simulator (``at2_node_tpu_torch/sim``, run after
+   phase 8) through the port's five CLIs, each a subprocess started
+   without PYTHONHASHSEED (the tools pin it), four at a time; every hash
+   must equal the reference's in ``SIM_GATES``, printed by the JAX
+   package's CLIs for the gates of its ``scripts/ci.sh``. The sim runs on
+   the host CPU and launches no kernel.
+   11a. The determinism, byzantine-broker, restart and salting campaigns,
+       twice each (exit 0, no failing episode, the two hashes alike), the
+       50-episode campaign once, and ``planted_breach_episode(20260805)``
+       with scripts/ci.sh's artifact check (4 flight-recorder dumps, the
+       offending transfer stitched across nodes with its stragglers).
+   11b. The smoke grid twice and the full 18-cell grid at seed 1 once (no
+       cell breaching its SLO; the full grid's hash is the one
+       BENCH_SCENARIOS.json banks); both WAN replays with the [wan]
+       levers twice each (every transfer committed, the reference's p99,
+       the steady cell's under 1,000 ms); the overload A/B twice (the
+       uncontrolled arm breaches its SLO, the controlled arm holds it).
+   11c. Node 0's ``/capturez`` from the end of 10a (the last 512 inbound
+       frames, signatures checked by the verify kernel) replayed into a
+       fresh 4-node sim by ``capture_replay --repeat 2 --json``: one
+       verdict hash both times, no invariant violation; the messages in
+       the captured frames counted by kind, with a payload, an echo and a
+       ready (per transfer or per batch) and a co-signature (kind 16)
+       among them.
+   11d. ``bench_finality`` at its defaults: the production block and the
+       wire bytes equal the reference's; the light-client verify rate is
+       printed as the host CPU's, beside the card's name and power limit.
+   One ``{"sim": {...}}`` line gives the hashes, the seconds of each run
+   and of the phase.
+12. One JSON line describing the kernels (their times and bound at every
    shape, every main-path run, the ptxas figures), then the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -2369,9 +2398,11 @@ async def broker_run(net: ServerNet, broker: str, seed: int, rng, n_clients: int
 async def finality_broker_path(seed: int, by_lanes, card, card_line: str, kind: str = "cuda",
                                n_clients: int = NET_CLIENTS, per_batched: int = NET_PER_CLIENT_BATCHED,
                                broker_per_client: int = BROKER_PER_CLIENT,
-                               n_tampered: int = NODE_TAMPERED) -> dict:
+                               n_tampered: int = NODE_TAMPERED, capture_to: str | None = None) -> dict:
     """Phase 10: phase 6's net with ``[finality] enabled`` (10a: run A,
-    then the certificates), then a broker in front of node 0 (10b)."""
+    then the certificates), then a broker in front of node 0 (10b). With
+    ``capture_to``, node 0's ``/capturez`` is written there at the end of
+    10a, for phase 11c to replay in the sim."""
     import tempfile
 
     from at2_node_tpu_torch.client import Client
@@ -2422,6 +2453,12 @@ async def finality_broker_path(seed: int, by_lanes, card, card_line: str, kind: 
                 f"in {final_s:.3f} s; verify kernel launches a node {[p['launches'] for p in res['nodes']]}; "
                 f"{card_line}")
             out["net_finality"] = res
+            if capture_to is not None:
+                capture = net.get(0, "/capturez")
+                with open(capture_to, "w") as f:
+                    f.write(capture)
+                log(f"{label}: node 0's /capturez ({len(json.loads(capture)['records'])} records, "
+                    f"{len(capture):,} bytes) written for phase 11c")
 
             label = "broker node net (10b, loadgen --broker)"
             broker, broker_proc = start_broker(net, workdir)
@@ -2708,6 +2745,243 @@ def pool_path(torch, mat: Material, rng, seed: int, by_lanes: dict) -> dict:
     return {"compare": cmp, "replay": replay, "scale_net": net, "entry": ent}
 
 
+# -- phase 11 --------------------------------------------------------------
+
+
+# The sim gates of the reference's scripts/ci.sh and what the JAX package's
+# CLIs print for them under PYTHONHASHSEED=0 (the full grid is the hash that
+# BENCH_SCENARIOS.json banks). The port's CLIs must print the same. "short"
+# gates also run in the tests on the CPU; "runs" is how often phase 11 runs
+# each (twice where scripts/ci.sh checks that a seed reproduces its hash).
+SIM_GATES = {
+    "determinism": {
+        "ci": "scripts/ci.sh:61-77", "tool": "sim_run", "argv": ("--seed", "7", "--episodes", "3"),
+        "hash": "3a2947ccb595d15502516cf2a87cec418284cdbb82c6fc2a9db5a6f0305fb39b", "runs": 2, "short": True},
+    "campaign": {
+        "ci": "scripts/ci.sh:108-114", "tool": "sim_run", "argv": ("--seed", "1", "--episodes", "50"),
+        "hash": "21ee6382d32a3ff9217e1fb10f72cde27e9f3c946fb60a62649f6786de3a3578", "runs": 1, "short": False},
+    "broker": {
+        "ci": "scripts/ci.sh:124-142", "tool": "sim_run", "argv": ("--seed", "11", "--episodes", "5", "--broker"),
+        "hash": "858512b61c24ef5aecc8b5e821786f5cd911730d7379c9509914638e8f51a9ac", "runs": 2, "short": True},
+    "restart": {
+        "ci": "scripts/ci.sh:144-163", "tool": "sim_run",
+        "argv": ("--seed", "13", "--episodes", "4", "--durability"),
+        "hash": "70c4ae793a812572bb427f402b34e07c50f4706622fb6c4ce87db96f8128bb0a", "runs": 2, "short": True},
+    "salting": {
+        "ci": "scripts/ci.sh:165-188", "tool": "sim_run", "argv": ("--seed", "7", "--episodes", "3", "--salting"),
+        "hash": "018ec3d9a7659dd67c45d172ae86360600324847d8ddcfb991d7d731da2e2f3e", "runs": 2, "short": True},
+    "grid_smoke": {
+        "ci": "scripts/ci.sh:190-206", "tool": "scenario_grid",
+        "argv": ("--seed", "7", "--smoke", "--txs", "24", "--duration", "8"),
+        "hash": "0833303a755eecd97dea660db52abe3ee32da403ada454760ff5329d3371eb26", "runs": 2, "short": True},
+    "grid_full": {
+        "ci": "BENCH_SCENARIOS.json", "tool": "scenario_grid", "argv": ("--seed", "1"),
+        "hash": "45c99be73b3bb8dbe48d8f16a0818bf4c2b2cd334e4bd019cd13ffcbd9a6cc1c", "runs": 1, "short": False},
+    "wan_steady": {
+        "ci": "scripts/ci.sh:208-243", "tool": "scenario_grid",
+        "argv": ("--seed", "7", "--replay", "wan3/steady/none+wan", "--txs", "24", "--duration", "8", "--json"),
+        "hash": "066b7d9b3db0e231ee92adddb6ad8970cfd26d72b78f5850b2c6b506d51586f1", "p99_ms": 307.873,
+        "runs": 2, "short": True},
+    "wan_cut": {
+        "ci": "scripts/ci.sh:208-243", "tool": "scenario_grid",
+        "argv": ("--seed", "7", "--replay", "wan3/steady/cut+wan", "--txs", "24", "--duration", "8", "--json"),
+        "hash": "67c93ae0c81681459443d0dd9a0d7e1caa9b565a309179944a64a16ba70bca1c", "p99_ms": 507.459,
+        "runs": 2, "short": True},
+    "overload": {
+        "ci": "scripts/ci.sh:245-284", "tool": "overload_ab",
+        "argv": ("--seed", "5", "--clients", "60", "--crowd", "40", "--txs", "80", "--workload", "flash_crowd",
+                 "--quiet", "--json"),
+        "hash": "831c18351bc94c47ce01dd1f954881a1387726f26a260fb4bf26c8276b2f51ca", "runs": 2, "short": True},
+}
+# scripts/ci.sh's bar for the WAN steady cell with the [wan] levers on
+SIM_WAN_P99_MS = 1000.0
+# bench_finality at its defaults (4 nodes, 48 transfers, audit_every 8,
+# seed 7): the reference's production block and wire bytes
+SIM_FINALITY = {
+    "production": {"certificates": 24, "certified": 48, "frontier": 48, "lag_p50_s": 0.05,
+                   "lag_p99_s": 0.05, "lag_samples": 24, "violations": []},
+    "cert_wire_bytes": 369,
+    "cosig_wire_bytes": 265,
+}
+# the planted-breach artifact check of scripts/ci.sh:79-106, on the port
+SIM_BREACH_CHECK = """
+from at2_node_tpu_torch.sim.campaign import planted_breach_episode
+
+r = planted_breach_episode(20260805)
+assert r.violations, "planted breach must violate invariants"
+obs = r.obs
+assert obs is not None, "failing episode must attach obs artifact"
+recs = obs["recorders"]
+assert len(recs) == 4, f"want 4 recorder dumps, got {len(recs)}"
+for dump in recs:
+    assert dump["recorder"]["events"], f"node {dump['node']}: empty flight-recorder ring"
+offending = [tx for tx in obs["stitched"]["txs"] if tx["seq"] == 1]
+assert offending, "stitched timeline must contain the offending tx"
+assert offending[0]["nodes"] >= 2, "timeline must span multiple nodes"
+assert offending[0]["stragglers"], "straggler attribution missing"
+print(len(r.violations), offending[0]["nodes"])
+"""
+SIM_WORKERS = 4  # sim processes at once on the card's machine's 8 cores
+SIM_TIMEOUT_S = 600
+
+
+def sim_tool(module: str, argv) -> dict:
+    """One port sim CLI run as a user runs it: ``python -m`` from this
+    checkout, the hash seed left to the tool (it re-executes itself under
+    PYTHONHASHSEED=0)."""
+    env = checkout_env()
+    env.pop("PYTHONHASHSEED", None)
+    cmd = [sys.executable, "-m", module, *argv] if module else [sys.executable, *argv]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, env=env, timeout=SIM_TIMEOUT_S)
+    return {"rc": proc.returncode, "out": proc.stdout, "err": proc.stderr, "s": time.perf_counter() - t0}
+
+
+def sim_gate_result(name: str, run: dict) -> dict:
+    """A gate run's hash and its own verdict; raises unless the run passed
+    its tool's own bar (exit 0, no failing episode, no breaching cell)."""
+    gate = SIM_GATES[name]
+    tail = f"{run['out'][-1500:]} {run['err'][-1500:]}"
+    check(run["rc"] == 0, f"sim gate {name}: exit {run['rc']}: {tail}")
+    if gate["tool"] == "sim_run":
+        m = re.search(r"(\d+) failures, hash ([0-9a-f]{64})", run["out"])
+        check(m is not None and m.group(1) == "0", f"sim gate {name}: {tail}")
+        return {"hash": m.group(2)}
+    if gate["tool"] == "overload_ab":
+        doc = json.loads(run["out"])
+        check(doc["ok"], f"sim gate {name}: the A/B claim failed: {tail}")
+        arms = {c["arm"]: c for c in doc["cells"]}
+        return {"hash": doc["ab_hash"], "arms": {a: {"steady_p99_ms": c["steady_p99_ms"], "slo_ok": c["slo_ok"],
+                                                     "shed": c["shed"], "committed": c["committed"],
+                                                     "offered": c["offered"]} for a, c in arms.items()}}
+    if "--replay" in gate["argv"]:
+        cell = json.loads(run["out"])
+        check(not cell["violations"] and cell["slo"]["ok"], f"sim gate {name}: {tail}")
+        return {"hash": cell["trace_hash"], "p99_ms": cell["latency_p99_ms"],
+                "committed": cell["committed"], "offered": cell["offered"]}
+    m = re.search(r"(\d+) cells, (\d+) breaching, hash ([0-9a-f]{64})", run["out"])
+    check(m is not None and m.group(2) == "0", f"sim gate {name}: {tail}")
+    return {"hash": m.group(3), "cells": int(m.group(1))}
+
+
+def capture_kinds(path: str) -> tuple:
+    """A /capturez dump's record count and its messages counted by kind
+    name: a frame may coalesce many messages, and a record's kind is its
+    first message's."""
+    from at2_node_tpu_torch.broadcast import messages as m
+
+    names = {getattr(m, k): k for k in ("GOSSIP", "ECHO", "READY", "REQUEST", "HIST_IDX_REQ", "HIST_IDX",
+                                        "HIST_REQ", "HIST_BATCH", "BATCH", "BATCH_ECHO", "BATCH_READY",
+                                        "BATCH_REQ", "DIR_ANNOUNCE", "CONFIG_TX", "BEACON", "CERT_SIG")}
+    with open(path) as f:
+        records = json.load(f)["records"]
+    kinds: Counter = Counter()
+    for r in records:
+        for msg in m.parse_frame(bytes.fromhex(r[3])):
+            kind = msg.encode()[0]
+            kinds[names.get(kind, f"kind {kind}")] += 1
+    return len(records), kinds
+
+
+def sim_path(capture: str | None, card: str) -> dict:
+    """Phase 11: the port's deterministic simulator through its five CLIs,
+    each a subprocess, SIM_WORKERS at a time. 11a the campaigns and the
+    planted breach, 11b the grids and the overload A/B, 11c phase 10a's
+    capture replayed, 11d bench_finality; every hash against SIM_GATES."""
+    t0 = time.perf_counter()
+    jobs = {}
+    for name, gate in SIM_GATES.items():
+        for k in range(gate["runs"]):
+            jobs[(name, k)] = (f"at2_node_tpu_torch.tools.{gate['tool']}", gate["argv"])
+    jobs[("breach", 0)] = (None, ("-c", SIM_BREACH_CHECK))
+    if capture is not None:
+        jobs[("capture", 0)] = ("at2_node_tpu_torch.tools.capture_replay", (capture, "--repeat", "2", "--json"))
+    jobs[("finality", 0)] = ("at2_node_tpu_torch.tools.bench_finality", ())
+    # the longest first, so the pool ends together
+    order = sorted(jobs, key=lambda j: j[0] not in ("campaign", "grid_full"))
+    with ThreadPoolExecutor(max_workers=SIM_WORKERS) as ex:
+        futs = {j: ex.submit(sim_tool, *jobs[j]) for j in order}
+        runs = {j: f.result() for j, f in futs.items()}
+    out: dict = {"gates": {}, "seconds": {}}
+
+    for name, gate in SIM_GATES.items():
+        res = [sim_gate_result(name, runs[(name, k)]) for k in range(gate["runs"])]
+        hashes = [r["hash"] for r in res]
+        secs = [runs[(name, k)]["s"] for k in range(gate["runs"])]
+        check(len(set(hashes)) == 1, f"sim gate {name}: the same seed gave {hashes}")
+        check(hashes[0] == gate["hash"], f"sim gate {name}: hash {hashes[0]}, the reference's {gate['hash']}")
+        extra = ""
+        if "p99_ms" in gate:
+            check(all(r["p99_ms"] == gate["p99_ms"] for r in res), f"sim gate {name}: p99 {res}")
+            check(all(r["committed"] == r["offered"] for r in res), f"sim gate {name}: lost transfers {res}")
+            extra = f"; p99 {res[0]['p99_ms']} ms, {res[0]['committed']}/{res[0]['offered']} committed"
+            if name == "wan_steady":
+                check(res[0]["p99_ms"] < SIM_WAN_P99_MS, f"sim gate {name}: p99 {res[0]['p99_ms']} ms")
+                extra += f" (< {SIM_WAN_P99_MS:.0f} ms)"
+        if "arms" in res[0]:
+            arms = res[0]["arms"]
+            check(not arms["uncontrolled"]["slo_ok"] and arms["controlled"]["slo_ok"],
+                  f"sim gate {name}: the arms {arms}")
+            extra = ("; uncontrolled arm breaches (steady p99 "
+                     f"{arms['uncontrolled']['steady_p99_ms']} ms), controlled arm holds (steady p99 "
+                     f"{arms['controlled']['steady_p99_ms']} ms, shed {arms['controlled']['shed']})")
+        if "cells" in res[0]:
+            extra = f"; {res[0]['cells']} cells, none breaching"
+        out["gates"][name] = {"hash": hashes[0], "runs": gate["runs"], **{k: v for k, v in res[0].items()
+                                                                          if k != "hash"}}
+        out["seconds"][name] = secs
+        log(f"sim {name} ({gate['ci']}): {gate['tool']} {' '.join(gate['argv'])}: exit 0, hash "
+            f"{hashes[0][:16]}… = the reference's"
+            + (f", {gate['runs']} runs alike" if gate["runs"] > 1 else "")
+            + f"{extra}; {', '.join(f'{s:.1f}' for s in secs)} s")
+
+    br = runs[("breach", 0)]
+    check(br["rc"] == 0, f"sim planted breach: exit {br['rc']}: {br['err'][-3000:]}")
+    n_viol, n_nodes = (int(x) for x in br["out"].split())
+    out["gates"]["planted_breach"] = {"violations": n_viol, "offending_tx_nodes": n_nodes}
+    out["seconds"]["planted_breach"] = [br["s"]]
+    log(f"sim planted breach (scripts/ci.sh:79-106): planted_breach_episode(20260805) gave {n_viol} "
+        f"violations, 4 flight-recorder dumps and the offending transfer stitched across {n_nodes} nodes; "
+        f"{br['s']:.1f} s")
+
+    if capture is not None:
+        cr = runs[("capture", 0)]
+        check(cr["rc"] == 0, f"sim capture replay: exit {cr['rc']}: {cr['err'][-3000:]}")
+        verdict = json.loads(cr["out"])
+        check(verdict["deterministic"], f"sim capture replay: two replays differ: {cr['err'][-2000:]}")
+        check(not verdict["violations"], f"sim capture replay: violations {verdict['violations']}")
+        n_records, kinds = capture_kinds(capture)
+        for what, names in (("payload", ("GOSSIP", "BATCH")), ("echo", ("ECHO", "BATCH_ECHO")),
+                            ("ready", ("READY", "BATCH_READY")), ("co-signature", ("CERT_SIG",))):
+            check(any(kinds[n] for n in names), f"sim capture replay: no {what} message in {dict(kinds)}")
+        out["capture"] = {"records": n_records, "messages": dict(kinds),
+                          "verdict_sha256": verdict["verdict_sha256"], "injected": verdict["injected"],
+                          "committed": verdict["committed"]}
+        out["seconds"]["capture"] = [cr["s"]]
+        log(f"sim capture replay (11c): node 0's /capturez from phase 10a ({n_records} records holding "
+            f"{', '.join(f'{k} {c}' for k, c in sorted(kinds.items()))}) replayed twice into a fresh 4-node "
+            f"sim by capture_replay --repeat 2: verdict {verdict['verdict_sha256'][:16]}… both times, no "
+            f"invariant violation, committed {verdict['committed']}; {cr['s']:.1f} s")
+
+    fb = runs[("finality", 0)]
+    check(fb["rc"] == 0, f"sim bench_finality: exit {fb['rc']}: {fb['err'][-3000:]}")
+    doc = json.loads(fb["out"])
+    for key, want in SIM_FINALITY.items():
+        check(doc[key] == want, f"sim bench_finality: {key} {doc[key]}, the reference's {want}")
+    out["finality"] = {**SIM_FINALITY, "verify": doc["verify"]}
+    out["seconds"]["finality"] = [fb["s"]]
+    prod = doc["production"]
+    log(f"sim bench_finality (11d, defaults): {prod['certificates']} certificates, lag p50 "
+        f"{prod['lag_p50_s']} s p99 {prod['lag_p99_s']} s (virtual), a {doc['cert_wire_bytes']} B certificate "
+        f"and a {doc['cosig_wire_bytes']} B co-signature = the reference's; light-client verify "
+        f"{doc['verify']['subset_per_s']}/s (f+1 subset) and {doc['verify']['full_per_s']}/s (full member "
+        f"list) on the host CPU of the card's machine ({card}); {fb['s']:.1f} s")
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"phase 11 (the deterministic simulator) took {out['phase_s']:.1f} s, {SIM_WORKERS} sim processes "
+        f"at a time on the host CPU; {card}")
+    return out
+
+
 def device_share(run: dict, by_lanes: dict) -> float:
     """Kernel time on the card over the run's wall time, from phase 3's
     per-bucket kernel times (device clock) and the run's flush buckets."""
@@ -2746,7 +3020,11 @@ def main() -> None:
         f"{nodes['node_grpc_batched']['tx_per_s']:,.0f} tx/s for phase 6's run A ([plane] shards = 1, "
         f"no store) in this call; phase 9 took {time.perf_counter() - t9:.1f} s; {card}")
     t10 = time.perf_counter()
-    finality = asyncio.run(finality_broker_path(args.seed, times, device_name, card))
+    import tempfile
+
+    simdir = tempfile.TemporaryDirectory(prefix="at2-phase11-")
+    capture = os.path.join(simdir.name, "capturez-node0.json")
+    finality = asyncio.run(finality_broker_path(args.seed, times, device_name, card, capture_to=capture))
     log(f"finality and broker node net: [finality] enabled {finality['net_finality']['tx_per_s']:,.0f} "
         f"tx/s (SendAssetBatch), through the broker {finality['net_broker']['tx_per_s']:,.0f} tx/s "
         f"(loadgen --broker, unary SendAsset distilled into SendDistilledBatch), against "
@@ -2758,6 +3036,8 @@ def main() -> None:
         f"against {nodes['node_grpc_batched']['tx_per_s']:,.0f} tx/s for phase 6's run A (mode "
         f"\"auto\", the verify kernel) in this call")
     pooled = pool_path(torch, mat, rng, args.seed, kp["by_lanes"])
+    sim = sim_path(capture, card)
+    simdir.cleanup()
 
     from at2_node_tpu_torch.ops import cuda_verify
 
@@ -2866,6 +3146,7 @@ def main() -> None:
         "main_path": {k: pooled[k] for k in ("replay", "scale_net", "entry")},
         "card": card,
     })
+    print(json.dumps({"sim": sim}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

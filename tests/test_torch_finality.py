@@ -8,7 +8,8 @@
   pairs; ``restore(export())`` carries across packages both ways; the two
   ``LightVerifier``s and ``verify_chain``s give equal verdicts on a clean
   chain and on its mutants; the port's native kind-16 parse equals its
-  Python decode (and the reference's) on mutated frames.
+  Python decode (and the reference's) on frames from the port's
+  ``mutate_cert_frame``, which mutates byte for byte as the reference's.
 * The fleet: four in-process port ``Service``s (host verifier, thresholds
   2, ``audit_every = 8``, ``[finality] enabled``) commit 64 transfers;
   every node holds a chain the reference's light client accepts (decoded
@@ -37,7 +38,7 @@ from at2_node_tpu.finality import LightVerifier as RefLightVerifier
 from at2_node_tpu.finality import light as ref_light
 from at2_node_tpu.finality import scheme as ref_scheme
 from at2_node_tpu.finality import verify_chain as ref_verify_chain
-from at2_node_tpu.sim.hostile import mutate_cert_frame
+from at2_node_tpu.sim.hostile import mutate_cert_frame as ref_mutate_cert_frame
 from at2_node_tpu_torch.broadcast import messages as port_msgs
 from at2_node_tpu_torch.client import Client
 from at2_node_tpu_torch.crypto.keys import SignKeyPair
@@ -53,6 +54,7 @@ from at2_node_tpu_torch.node.config import (
     VerifierConfig,
 )
 from at2_node_tpu_torch.node.service import Service
+from at2_node_tpu_torch.sim.hostile import mutate_cert_frame
 from at2_node_tpu_torch.tools._common import make_net_configs
 
 TIMEOUT = 30.0
@@ -170,8 +172,10 @@ def test_native_kind16_parse_equals_python_decode():
     kp = _pair(14, 1)[0][0]
     wm, ranges, dird = _digests(2)
     good = port_msgs.CertSig.create(kp, 0, 7, wm, ranges, dird).encode()
-    rng = random.Random(int(np.random.default_rng(14).integers(1 << 31)))
+    seed = int(np.random.default_rng(14).integers(1 << 31))
+    rng, ref_rng = random.Random(seed), random.Random(seed)
     frames = [good] + [mutate_cert_frame(good, rng) for _ in range(48)]
+    assert frames[1:] == [ref_mutate_cert_frame(good, ref_rng) for _ in range(48)]
     native, frame_ok = parse_frames_native(frames)
     for fi, ok in enumerate(frame_ok):
         try:

@@ -263,18 +263,41 @@ class CounterGroup:
     Keeps ``self.stats["delivered"] += 1`` call sites (and every test
     that reads ``stats["delivered"]``) working while the storage lives
     on registry Counters. The key set is fixed at construction: a typo'd
-    key raises KeyError."""
+    key raises KeyError.
 
-    __slots__ = ("_counters",)
+    ``stats[k] += n`` is a read and then a write, and the thread shards
+    of a sharded plane bump one group at once. A write therefore adds
+    its difference from what the same thread last read of that key:
+    were it a plain ``set``, a shard that read ``v`` while another
+    bumped ``v`` twice would write ``v + 1 < v + 2``, which the
+    monotone counter refuses with ``ValueError`` in the middle of a
+    delivery loop (the lost batch entries of a ``thread`` plane).
+    Assignment is only this increment; a key never read on the thread
+    is set outright."""
+
+    __slots__ = ("_counters", "_reads")
 
     def __init__(self, counters: dict[str, Counter]) -> None:
         self._counters = counters
+        self._reads = threading.local()
+
+    def _last_reads(self) -> dict:
+        reads = getattr(self._reads, "values", None)
+        if reads is None:
+            reads = self._reads.values = {}
+        return reads
 
     def __getitem__(self, key: str) -> int:
-        return self._counters[key].value
+        value = self._counters[key].value
+        self._last_reads()[key] = value
+        return value
 
     def __setitem__(self, key: str, value: int) -> None:
-        self._counters[key].set(value)
+        read = self._last_reads().pop(key, None)
+        if read is None:
+            self._counters[key].set(value)
+        else:
+            self._counters[key].inc(value - read)
 
     def __contains__(self, key: str) -> bool:
         return key in self._counters

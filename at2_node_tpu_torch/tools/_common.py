@@ -1,7 +1,11 @@
 """Shared helpers for the benchmark/demo tools.
 
 Counterpart of ``at2_node_tpu/tools/_common.py``; ``make_net_configs``
-also takes a seed, so keys can be drawn with numpy.
+also takes a seed, so keys can be drawn with numpy. ``card_stamp`` is what
+the port's rows carry where the reference's carried
+``tunnel_live_at_write``, and ``OUT_DIR`` is where the port's tools write
+by default (a git-ignored directory: the repo's root ``BENCH_*.json``
+files are the TPU's record).
 """
 
 from __future__ import annotations
@@ -11,6 +15,8 @@ import itertools
 import json
 import os
 import socket
+import subprocess
+import time
 from typing import Iterator, List
 
 import numpy as np
@@ -20,6 +26,64 @@ from ..net.peers import Peer
 from ..node.config import Config
 
 _GET_TIMEOUT = 5.0
+
+# the tools' default output directory: under the package's git-ignored
+# build/, never the repo's root
+OUT_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "build", "bench"
+)
+
+
+def device_seconds(dev, fn) -> float:
+    """Seconds ``fn`` takes on ``dev``: CUDA events around it on the card
+    (its launches' device time), the host clock on the CPU."""
+    import torch
+
+    if dev.type != "cuda":
+        t0 = time.perf_counter()
+        fn()
+        return time.perf_counter() - t0
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / 1e3
+
+
+def tool_device(device: str, flag: str = "--device cpu"):
+    """A tool's device: ``"cuda"`` is ``cuda:0`` and raises without a card,
+    naming the ``flag`` that asks for the host instead."""
+    import torch
+
+    from ..ops.cuda_verify import resolve_device
+
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"no CUDA device is available; pass {flag} to run on the host")
+    return resolve_device(device)
+
+
+def card_stamp(device) -> str:
+    """The card a measurement ran on, as ``nvidia-smi --query-gpu=name,
+    power.limit --format=csv,noheader`` prints it (name and power limit),
+    or ``"cpu"`` for a run of the plain versions on the host. Rows of two
+    cards, or of a card and the CPU, are never compared (``regress``)."""
+    import torch
+
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return "cpu"
+    index = 0 if dev.index is None else dev.index
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", f"--id={index}", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=30,
+        )
+        line = out.stdout.strip().splitlines()[0] if out.returncode == 0 else ""
+    except (OSError, subprocess.TimeoutExpired, IndexError):
+        line = ""
+    return line or f"{torch.cuda.get_device_name(index)}, power limit not read"
 
 
 async def fetch_json(host: str, port: int, path: str,

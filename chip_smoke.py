@@ -207,7 +207,40 @@ is printed):
        printed as the host CPU's, beside the card's name and power limit.
    One ``{"sim": {...}}`` line gives the hashes, the seconds of each run
    and of the phase.
-12. One JSON line describing the kernels (their times and bound at every
+12. The measurement tools (``at2_node_tpu_torch/tools``, run after phase
+   11), every row into a temporary directory:
+   12a. ``verify_bench`` at its three buckets (65,536, 8,192, 1,024 lanes,
+       3 trials): each bucket's kernel bitmask must equal the plain
+       version's on the card and the expected verdicts (all valid).
+   12b. ``aggregate_bench --cert-route`` at n = 64: the verify kernel's
+       verdicts on a clean and a tampered certificate, and the RLC
+       kernels' verdicts and eq_ok, which must equal phase 3c's; then the
+       default host grid at ``--rounds 1``.
+   12c. ``plane_bench`` with scripts/ci.sh's arguments, every node on the
+       card's verifier: ``--compare-obs``, ``--smoke-profile`` (the loop,
+       and 2 shards under the thread and the process executor; every
+       phase counter must tick) and ``--shards-grid 1,2 --cores 2`` under
+       each executor; the
+       overhead and the speedup are printed beside the reference's 5%
+       and 1.5x, not gated on.
+   12d. ``e2e_bench``'s two arms at its defaults (16 clients x 50 unary
+       transfers: four ``server run`` processes on the host verifier, and
+       four in-process nodes sharing one ``CudaBatchVerifier``), then
+       ``--compose``; every transfer must commit.
+   12e. Four ``server run`` nodes with ``kind = "cuda"``: 16 clients send
+       SendAssetBatch chunks while ``profile_collect --duration 5``
+       profiles every node (its table printed a node); every transfer
+       must commit and equal the replay; then ``incident --now`` as a
+       subprocess, its bundle rebuilt twice from the files it wrote, with
+       its hash.
+   12f. ``bench_durability`` at its defaults (100,000 accounts, 64 shards),
+       the restarted node on the card; its ``ok`` must hold.
+   12g. ``regress --dir`` over the phase's rows (12a's and 12d's verify
+       grids, at the same trials, are judged against each other): no
+       schema error; a regression is printed, not gated on.
+   One ``{"tool": ...}`` line a tool; the kernels line counts phase 12's
+   launches with the earlier phases'.
+13. One JSON line describing the kernels (their times and bound at every
    shape, every main-path run, the ptxas figures), then the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -821,9 +854,10 @@ def certificate(torch, mat: Material, rng, by_lanes: dict) -> dict:
     bad = cert[:j] + [(pk, msg, sig[:40] + bytes([sig[40] ^ 2]) + sig[41:])] + cert[j + 1:]
     cuda_rlc.launches = cuda_rlc.fold_launches = 0
     cuda_rlc.layout_launches = [0, 0]
+    verdicts = {}
     for name, items in (("clean", cert), ("tampered", bad)):
         cols = [list(x) for x in zip(*items)]
-        one = agg.aggregate_verify(*cols)
+        one = verdicts[name] = agg.aggregate_verify(*cols)
         per_sig = v.verify_batch(*cols)
         check(one == bool(per_sig.all()) == (name == "clean"),
               f"certificate ({name}): aggregate_verify {one}, verify kernel {per_sig.all()}")
@@ -852,7 +886,8 @@ def certificate(torch, mat: Material, rng, by_lanes: dict) -> dict:
     log(f"certificate n={CERT_N}: aggregate_verify agrees with the verify kernel (clean True, tampered "
         f"False); whole call {agg_ms:.3f} ms median against verify_batch's {per_sig_ms:.3f} ms; on the "
         f"card the RLC kernels take {device_ms:.3f} ms against the verify kernel's {k1_ms:.3f} ms at 64 lanes")
-    return {"n": CERT_N, "launches": {"ed25519_rlc_lanes": launches[0], "ed25519_rlc_fold": launches[1]},
+    return {"n": CERT_N, "verdicts": verdicts,
+            "launches": {"ed25519_rlc_lanes": launches[0], "ed25519_rlc_fold": launches[1]},
             "lanes_launches_by_layout": by_layout,
             "aggregate_verify_ms": agg_ms, "verify_batch_ms": per_sig_ms,
             "rlc_device_ms": device_ms, "verify_kernel_ms": k1_ms}
@@ -2982,6 +3017,384 @@ def sim_path(capture: str | None, card: str) -> dict:
     return out
 
 
+# -- phase 12 --------------------------------------------------------------
+
+
+TOOLS_TRIALS = 3  # 12a and 12d's --compose: verify_bench's trials (its default)
+TOOLS_AGG_ROUNDS = 1  # 12b: the default grid at reduced --rounds (the tool's: 3)
+TOOLS_PROFILE_S = 5.0  # 12e: profile_collect --duration
+TOOLS_PROFILE_CHUNK = 256  # 12e: transfers a client sends a SendAssetBatch call
+TOOLS_PROFILE_MAX_CHUNKS = 32  # 12e: a client's cap while the window is open
+# the reference's thresholds for the plane gates (scripts/ci.sh:381-508):
+# printed beside the measurement, not gated on here
+OBS_BUDGET_PCT = 5.0
+SHARD_SPEEDUP_MIN = 1.5
+E2E_SIZE: list = []  # 12d: e2e_bench's size flags (empty: its defaults, 16 clients x 50)
+
+
+def zero_launch_counts() -> None:
+    from at2_node_tpu_torch.ops import cuda_rlc, cuda_verify
+
+    cuda_verify.launches = 0
+    cuda_rlc.launches = cuda_rlc.fold_launches = 0
+    cuda_rlc.layout_launches = [0, 0]
+
+
+def launch_counts() -> Counter:
+    """This process's kernel launches since :func:`zero_launch_counts`."""
+    from at2_node_tpu_torch.ops import cuda_rlc, cuda_verify
+
+    return Counter({"ed25519_verify": cuda_verify.launches, "ed25519_rlc_lanes": cuda_rlc.launches,
+                    "ed25519_rlc_fold": cuda_rlc.fold_launches})
+
+
+def quiet(fn, *args):
+    """``fn(*args)`` with its standard output captured: (result, text)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        result = fn(*args)
+    return result, buf.getvalue()
+
+
+def write_json(path: str, doc: dict) -> None:
+    with open(path, "w") as f:
+        json.dump(doc, f, indent=1)
+        f.write("\n")
+
+
+def tools_verify(outdir: str, card: str, device: str = "cuda") -> dict:
+    """12a: ``verify_bench`` at its three buckets; each bucket's bitmask
+    must equal the plain version's on the card and the expected one (the
+    tool's batches are all valid)."""
+    from at2_node_tpu_torch.ops import ed25519 as v
+    from at2_node_tpu_torch.tools import verify_bench
+
+    t0 = time.perf_counter()
+    zero_launch_counts()
+    result, bitmasks = verify_bench.run(device, verify_bench.GRID, TOOLS_TRIALS)
+    launches = launch_counts()
+    mismatches = 0
+    for bucket in verify_bench.GRID:
+        pks, msgs, sigs = verify_bench._make_batch(bucket)
+        rows = v.prep_packed(pks, msgs, sigs, bucket, v.StagingPool(pinned=False))
+        plain = np.unpackbits(v.verify_packed(rows.to(device)).cpu().numpy(), count=bucket).astype(bool)
+        got = np.unpackbits(bitmasks[bucket], count=bucket).astype(bool)
+        mismatches += int(np.count_nonzero(got != plain)) + int(np.count_nonzero(~plain))
+    check(mismatches == 0, f"verify_bench (12a): kernel, plain version and expected verdicts differ on "
+          f"{mismatches} lanes")
+    check(launches["ed25519_verify"] > 0 or device != "cuda", "verify_bench (12a) launched no verify kernel")
+    write_json(os.path.join(outdir, "BENCH_r01.json"),
+               {"cmd": "python -m at2_node_tpu_torch.tools.verify_bench", "rc": 0, "parsed": result})
+    for bucket, row in result["grid"].items():
+        log(f"verify_bench (12a) {bucket} lanes: device_only {row['device_only']:,.1f} sigs/s, pipelined "
+            f"{row['pipelined']:,.1f} sigs/s ({row['pipelined_vs_device_pct']}%); {row['card']}")
+    log(f"verify_bench (12a): {result['value']:,.1f} sigs/s at {result['bucket']} lanes, vs_baseline "
+        f"{result['vs_baseline']} (BASELINE.json's 50,000); host prep {result['host_prep_rate']:,.1f}/s, "
+        f"OpenSSL {result['cpu_openssl_1core_rate']:,.1f}/s a core; bitmasks equal the plain version's and "
+        f"the expected ones at every bucket; {launches['ed25519_verify']} verify kernel launches; "
+        f"{time.perf_counter() - t0:.1f} s")
+    return {"tool": "verify_bench", "phase": "12a", "result": result, "mismatches": mismatches,
+            "launches": dict(launches), "seconds": time.perf_counter() - t0}
+
+
+def tools_aggregate(outdir: str, cert: dict, card: str, device: str = "cuda") -> dict:
+    """12b: ``aggregate_bench --cert-route`` at n = 64 (its verdicts and
+    eq_ok those of phase 3c), then the default grid at reduced rounds."""
+    from at2_node_tpu_torch.tools import aggregate_bench as ab
+
+    t0 = time.perf_counter()
+    zero_launch_counts()
+    routes = ab.cert_route(CERT_N, ab.ROUNDS, device)
+    launches = launch_counts()
+    ps, ag = routes["per_sig_kernel"], routes["rlc_aggregate"]
+    j = CERT_N // 2
+    check(ps["verdicts"] == {"clean": [True] * CERT_N, "tampered": [i != j for i in range(CERT_N)]},
+          f"aggregate_bench (12b): the verify kernel's certificate verdicts {ps['verdicts']}")
+    check(ag["verdicts"] == ag["eq_ok"] == cert["verdicts"] == {"clean": True, "tampered": False},
+          f"aggregate_bench (12b): aggregate {ag['verdicts']}, eq_ok {ag['eq_ok']}, phase 3c "
+          f"{cert['verdicts']}")
+    check((launches["ed25519_rlc_lanes"] > 0 and launches["ed25519_rlc_fold"] > 0) or device != "cuda",
+          f"aggregate_bench (12b) launched no RLC kernel: {dict(launches)}")
+    log(f"aggregate_bench --cert-route (12b) n={CERT_N}: the verify kernel {ps['ms']:.3f} ms a whole "
+        f"call, {ps['device_ms']:.4f} ms on the card; the RLC kernels' one equation {ag['ms']:.3f} ms, "
+        f"{ag['device_ms']:.4f} ms on the card; verdicts and eq_ok {ag['verdicts']} as in phase 3c; "
+        f"launches {dict(launches)}; {card}")
+    t1 = time.perf_counter()
+    rc, _ = quiet(ab.main, ["--rounds", str(TOOLS_AGG_ROUNDS), "--bank-dir", outdir,
+                            "--label", "phase12", "--quiet", "--device", device])
+    with open(os.path.join(outdir, "BENCH_AGGREGATE.json")) as f:
+        summary = json.load(f)["runs"]["phase12"]["summary"]
+    log(f"aggregate_bench grid (12b, host CPU, --rounds {TOOLS_AGG_ROUNDS}): rlc "
+        f"{summary['rlc_sigs_per_sec']:,.1f} sigs/s, native per-signature (1 thread) "
+        f"{summary['per_sig_native_1thread_sigs_per_sec']:,.1f}, python per-signature "
+        f"{summary['per_sig_python_sigs_per_sec']:,.1f} at {summary['bucket']} lanes; rlc "
+        f"{summary['rlc_vs_crypto_floor']}x the crypto floor (the reference's target 5x: "
+        f"{'met' if summary['target_met'] else 'missed'}, exit {rc}); {time.perf_counter() - t1:.1f} s")
+    return {"tool": "aggregate_bench", "phase": "12b", "cert_route": routes, "grid_summary": summary,
+            "grid_rc": rc, "launches": dict(launches), "seconds": time.perf_counter() - t0}
+
+
+def tools_plane(outdir: str, card: str, device: str = "cuda") -> dict:
+    """12c: ``plane_bench`` with scripts/ci.sh's arguments: ``--compare-obs``,
+    ``--smoke-profile`` (the loop, 2 thread and 2 process shards), and
+    ``--shards-grid 1,2 --cores 2`` under each executor, every node on the
+    card's verifier (the port's default). The smokes' counters are a hard
+    check; the overhead and the speedup are printed beside the reference's
+    thresholds."""
+    from at2_node_tpu_torch.tools import plane_bench as pb
+
+    t0 = time.perf_counter()
+    zero_launch_counts()
+    obs = pb.compare_obs(3, 200, device, 120.0, 0, 2, OBS_BUDGET_PCT, bank_dir=outdir)
+    log(f"plane_bench --compare-obs (12c): obs on {obs['best_on_tx_per_sec']:,.1f} tx/s, off "
+        f"{obs['best_off_tx_per_sec']:,.1f} tx/s: overhead {obs['overhead_pct']}% against the reference's "
+        f"{OBS_BUDGET_PCT}% budget ({'within' if obs['ok'] else 'over'}); {obs['card']}")
+    smokes = {}
+    # scripts/ci.sh's two (the loop, and 2 process shards) and 2 thread shards
+    for shards, executor in ((1, "thread"), (2, "thread"), (2, "process")):
+        res = pb.smoke_profile(3, 200, 120.0, shards=shards, executor=executor, verifier=device)
+        check(res["ok"], f"plane_bench --smoke-profile ({res['executor']}): zero phases "
+              f"{res['zero_phases']}, worker-side {res['shard_zero_phases']}, folded lines "
+              f"{res['folded_lines']}, worker frames {res['worker_folded_frames']}")
+        smokes[res["executor"]] = res
+        log(f"plane_bench --smoke-profile (12c, executor {res['executor']}, shards {shards}): every phase "
+            f"counter ticked, {res['samples']} samples, {res['folded_lines']} folded lines, "
+            f"{res['worker_folded_frames']} worker frames; {res['committed_tx_per_sec']:,.1f} tx/s")
+    grids = {}
+    for executor in ("thread", "process"):
+        res = pb.shards_grid(3, 300, device, 120.0, 0, [1, 2], 2, 2, executor=executor, bank_dir=outdir)
+        grids[executor] = res["summary"]
+        speedup = res["summary"]["peak_speedup_vs_1"]
+        log(f"plane_bench --shards-grid 1,2 --cores 2 (12c, executor {executor}): "
+            + ", ".join(f"{c['shards']} shards {c['best_tx_per_sec']:,.1f} tx/s" for c in res["grid"])
+            + f"; speedup {speedup}x against the reference's {SHARD_SPEEDUP_MIN}x "
+            f"({'met' if speedup >= SHARD_SPEEDUP_MIN else 'missed'}) on "
+            f"{res['summary']['host_cores']} cores")
+    launches = launch_counts()
+    log(f"plane_bench (12c): {dict(launches)} kernel launches; {time.perf_counter() - t0:.1f} s")
+    return {"tool": "plane_bench", "phase": "12c", "compare_obs": obs,
+            "smoke": {k: {x: v[x] for x in ("ok", "samples", "folded_lines", "worker_folded_frames",
+                                             "committed_tx_per_sec", "zero_phases")}
+                      for k, v in smokes.items()},
+            "shards_grid": grids, "launches": dict(launches), "seconds": time.perf_counter() - t0}
+
+
+def tools_e2e(outdir: str, card: str, device: str = "cuda") -> dict:
+    """12d: ``e2e_bench``'s two arms at its defaults (16 clients x 50
+    transfers, unary), then ``--compose``; every transfer must commit."""
+    import logging
+
+    from at2_node_tpu_torch.tools import e2e_bench
+
+    # loadgen's transfers go to their sender: the ledger notes each one
+    logging.getLogger("at2_node_tpu_torch.ledger.accounts").setLevel(logging.ERROR)
+    t0 = time.perf_counter()
+    zero_launch_counts()
+    rc, _ = quiet(e2e_bench.main, ["--out", os.path.join(outdir, "BENCH_E2E.json"), "--device", device,
+                                   *E2E_SIZE])
+    check(rc == 0, f"e2e_bench (12d) exited {rc}")
+    with open(os.path.join(outdir, "BENCH_E2E.json")) as f:
+        arms = json.load(f)
+    for arm in ("cpu_subprocess", "cuda_inprocess"):
+        a = arms[arm]
+        check(a["committed"] == a["submitted"] > 0,
+              f"e2e_bench (12d) {arm}: {a['committed']} of {a['submitted']} committed")
+        log(f"e2e_bench (12d) {arm}: {a['committed']} of {a['submitted']} transfers committed, "
+            f"{a['committed_tx_per_sec']:,.1f} tx/s ({a['topology']}); {a.get('card')}")
+    t1 = time.perf_counter()
+    pipeline = os.path.join(outdir, "BENCH_PIPELINE.json")
+    rc, _ = quiet(e2e_bench.main, ["--compose", "--trials", str(TOOLS_TRIALS), "--device", device,
+                                   "--out", pipeline, "--bank-dir", outdir, *E2E_SIZE])
+    check(rc == 0, f"e2e_bench --compose (12d) exited {rc}")
+    with open(pipeline) as f:
+        doc = json.load(f)
+    composed, dec = doc["composed"], doc["decomposition"]
+    check(composed["committed"] == composed["submitted"] > 0,
+          f"e2e_bench --compose (12d): {composed['committed']} of {composed['submitted']} committed")
+    write_json(os.path.join(outdir, "BENCH_r02.json"),
+               {"cmd": "python -m at2_node_tpu_torch.tools.e2e_bench --compose", "rc": 0,
+                "parsed": doc["verify_grid"]})
+    ingress = doc["ingress_decomposition"]
+    log(f"e2e_bench --compose (12d): verify grid {doc['verify_grid']['value']:,.1f} sigs/s pipelined; plane "
+        f"{doc['plane'].get('committed_tx_per_sec')} tx/s (plane-only); ingress per-tx "
+        f"{ingress.get('per_tx', {}).get('ingress_tx_per_sec')}, distilled "
+        f"{ingress.get('distilled', {}).get('ingress_tx_per_sec')} tx/s; composed "
+        f"{composed['committed']} of {composed['submitted']} committed, {composed['committed_tx_per_sec']:,.1f} "
+        f"tx/s; binding term {dec['binding_term']}; {time.perf_counter() - t1:.1f} s; {card}")
+    launches = launch_counts()
+    return {"tool": "e2e_bench", "phase": "12d",
+            "arms": {k: {x: arms[k][x] for x in ("submitted", "committed", "committed_tx_per_sec")}
+                     for k in ("cpu_subprocess", "cuda_inprocess")},
+            "compose": {"composed_tx_per_sec": composed["committed_tx_per_sec"], "decomposition": dec},
+            "launches": dict(launches), "seconds": time.perf_counter() - t0}
+
+
+def rebuilt_dumps(bundle_dir: str) -> dict:
+    """The dumps an incident bundle directory was built from: every
+    ``<node>/<surface>.json`` file, keyed as ``incident.collect`` keys them."""
+    manifest = json.load(open(os.path.join(bundle_dir, "manifest.json")))
+    dumps: dict = {"nodes": {}}
+    for node in manifest["nodes"]:
+        safe = node.replace(":", "_").replace("/", "_")
+        surfaces = dumps["nodes"][node] = {}
+        for name in sorted(os.listdir(os.path.join(bundle_dir, safe))):
+            with open(os.path.join(bundle_dir, safe, name)) as f:
+                surfaces[name[: -len(".json")]] = json.load(f)
+    return dumps
+
+
+async def tools_net_path(seed: int, outdir: str, card: str, device: str = "cuda") -> dict:
+    """12e: four ``server run`` nodes with ``kind = "cuda"``: 16 clients
+    send SendAssetBatch chunks while ``profile_collect --duration 5``
+    profiles every node, then every transfer sent must commit on every
+    node (the replay); then ``incident --now`` against the same net, its
+    bundle rebuilt twice from the dumps it wrote, with its hash."""
+    import copy
+    import tempfile
+
+    from at2_node_tpu_torch.client import Client
+    from at2_node_tpu_torch.crypto.keys import SignKeyPair
+    from at2_node_tpu_torch.tools import incident, profile_collect
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed + 12)
+    clients = [SignKeyPair(rng.bytes(32)) for _ in range(NET_CLIENTS)]
+    # amounts of 1, so no debit can fail however many a client sends
+    n = len(clients)
+    plan = [[(seq, clients[(c + 1) % n].public, 1)
+             for seq in range(1, TOOLS_PROFILE_CHUNK * TOOLS_PROFILE_MAX_CHUNKS + 1)] for c in range(n)]
+    with tempfile.TemporaryDirectory(prefix="at2-phase12e-") as workdir:
+        net = ServerNet(device, workdir)
+        try:
+            net.start(deadline_s=180.0)
+            addrs = [("127.0.0.1", p) for p in net.rpc_ports]
+            before = [net.statusz(i) for i in range(net.n)]
+            profile = asyncio.ensure_future(profile_collect.run(addrs, TOOLS_PROFILE_S))
+            sent = [0] * len(clients)
+
+            async def client(c: int) -> None:
+                async with Client(f"http://127.0.0.1:{net.rpc_ports[c % net.n]}") as conn:
+                    while sent[c] == 0 or not profile.done():
+                        check(sent[c] < len(plan[c]), f"12e: client {c} ran out of transfers")
+                        chunk = plan[c][sent[c]:sent[c] + TOOLS_PROFILE_CHUNK]
+                        await conn.send_asset_many(clients[c], chunk)
+                        sent[c] += len(chunk)
+
+            t_load = time.perf_counter()
+            await asyncio.gather(*(client(c) for c in range(len(clients))))
+            results = await profile
+            total = sum(sent)
+            wait_committed(net, [b["stats"]["committed"] + total for b in before], NET_DEADLINE_S)
+            log(f"profiled node net (12e): {total} transfers from {len(clients)} clients committed on all "
+                f"{net.n} nodes, {total / (time.perf_counter() - t_load):,.0f} tx/s while profile_collect "
+                f"--duration {TOOLS_PROFILE_S:g} ran")
+            await check_replay(net, clients, [plan[c][:sent[c]] for c in range(len(clients))])
+            down = [a for a, r in results if isinstance(r, Exception)]
+            check(not down, f"profile_collect (12e): nodes {down} failed: {results}")
+            check(all(r["capture_started"] and r["plane_total_ms"] > 0 for _, r in results),
+                  "profile_collect (12e): a node's capture did not start or its plane spent no time")
+            import io
+
+            report = io.StringIO()
+            profile_collect.render(results, TOOLS_PROFILE_S, 0.0, report)
+            log(report.getvalue().rstrip())
+            launches = sum(net.statusz(i)["build"]["kernel_launches"] - before[i]["build"]["kernel_launches"]
+                           for i in range(net.n))
+            check(launches > 0 or device != "cuda", "12e: the servers launched no verify kernel")
+            # incident --now as an operator runs it, then the bundle rebuilt
+            # twice from the dumps it wrote
+            root = os.path.join(outdir, "incidents")
+            proc = subprocess.run(
+                [sys.executable, "-m", "at2_node_tpu_torch.tools.incident", "--now",
+                 *(f"{h}:{p}" for h, p in addrs), "--out", root],
+                capture_output=True, text=True, env=checkout_env(), timeout=120)
+            check(proc.returncode == 0, f"incident --now exited {proc.returncode}: {proc.stderr[-2000:]}")
+            manifest = json.loads(proc.stdout)
+            bundle_dir = os.path.join(root, [d for d in os.listdir(root)
+                                             if d.endswith(manifest["bundle_sha256"][:8])][0])
+            dumps = rebuilt_dumps(bundle_dir)
+            b1 = incident.build_bundle(dumps, reason=manifest["reason"])
+            b2 = incident.build_bundle(copy.deepcopy(dumps), reason=manifest["reason"])
+            check(b1["files"] == b2["files"]
+                  and b1["manifest"] == b2["manifest"] == manifest,
+                  "incident (12e): the bundle rebuilt from its dumps differs from the one written")
+            log(f"incident --now (12e): {len(manifest['files'])} files from {len(manifest['nodes'])} nodes, "
+                f"bundle {manifest['bundle_sha256'][:16]}..., rebuilt twice from its dumps with the same "
+                f"hash; {card}")
+        finally:
+            rcs = net.stop()
+        check(rcs == [0] * net.n, f"12e: servers exited with {rcs} on SIGTERM")
+    profiles = {a: {"coverage": r["coverage"], "top_serial": r["top_serial"], "plane_total_ms": r["plane_total_ms"],
+                    "shares": r["shares"], "off_plane_ms": r["off_plane_ms"]} for a, r in results}
+    return {"tool": "profile_collect", "phase": "12e", "profiles": profiles, "transfers": total,
+            "incident": {"files": len(manifest["files"]), "bundle_sha256": manifest["bundle_sha256"]},
+            "launches": {"ed25519_verify": launches}, "seconds": time.perf_counter() - t0}
+
+
+def tools_durability(outdir: str, card: str, device: str = "cuda") -> dict:
+    """12f: ``bench_durability`` at the reference's defaults, the restarted
+    node on the card's verifier."""
+    from at2_node_tpu_torch.tools import bench_durability
+
+    t0 = time.perf_counter()
+    zero_launch_counts()
+    path = os.path.join(outdir, "BENCH_DURABILITY.json")
+    rc, _ = quiet(bench_durability.main, ["--out", path, "--verifier", device])
+    with open(path) as f:
+        doc = json.load(f)
+    check(rc == 0 and doc["ok"], f"bench_durability (12f) exited {rc}: ok {doc['ok']}")
+    launches = launch_counts()
+    inc = doc["incremental_flush"]
+    log(f"bench_durability (12f): {doc['accounts']:,} accounts in {doc['shards']} shards migrated in "
+        f"{doc['migrate_s']} s; full flush {doc['full_flush']['bytes']:,} bytes in {doc['full_flush']['wall_s']} s; "
+        + ", ".join(f"delta {r['delta_commits']}: {r['segments_written']} segments, {r['bytes_vs_full']} of "
+                    f"full" for r in inc)
+        + f"; store open {doc['store_open']['wall_s']} s; the node healthy after "
+        f"{doc['service_restart']['healthy_after_s']} s ({doc['service_restart']['status']}, "
+        f"{doc['service_restart']['catchup_transfers']} catch-up transfers); {time.perf_counter() - t0:.1f} s; "
+        f"{doc['card']}")
+    return {"tool": "bench_durability", "phase": "12f", "ok": doc["ok"], "migrate_s": doc["migrate_s"],
+            "healthy_after_s": doc["service_restart"]["healthy_after_s"],
+            "incremental_flush": inc, "launches": dict(launches), "seconds": time.perf_counter() - t0}
+
+
+def tools_regress(outdir: str) -> dict:
+    """12g: the port's ``regress --dir`` over what phase 12 wrote: every file
+    must load (exit 2 is a schema error), and a regression is printed."""
+    from at2_node_tpu_torch.tools import regress
+
+    rc, report = quiet(regress.main, ["--dir", outdir])
+    check(rc in (0, 1), f"regress (12g) exited {rc} over {sorted(os.listdir(outdir))}")
+    log(report.rstrip())
+    return {"tool": "regress", "phase": "12g", "rc": rc,
+            "files": sorted(f for f in os.listdir(outdir) if f.endswith(".json")),
+            "regressions": report.rstrip().splitlines()[-1]}
+
+
+def tools_path(seed: int, cert: dict, card: str, device: str = "cuda") -> tuple:
+    """Phase 12: the port's measurement tools on the card (``device``
+    "cpu" rehearses it on the host), every row into a temporary
+    directory; returns (one JSON line's object a tool, the kernel
+    launches summed over the phase)."""
+    import tempfile
+
+    t12 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="at2-phase12-") as outdir:
+        rows = [tools_verify(outdir, card, device), tools_aggregate(outdir, cert, card, device),
+                tools_plane(outdir, card, device), tools_e2e(outdir, card, device),
+                asyncio.run(tools_net_path(seed, outdir, card, device)),
+                tools_durability(outdir, card, device), tools_regress(outdir)]
+    totals = Counter()
+    for row in rows:
+        totals.update(row.get("launches", {}))
+    log(f"phase 12 (the measurement tools) took {time.perf_counter() - t12:.1f} s; kernel launches "
+        f"{dict(totals)}; {card}")
+    return rows, totals
+
+
 def device_share(run: dict, by_lanes: dict) -> float:
     """Kernel time on the card over the run's wall time, from phase 3's
     per-bucket kernel times (device clock) and the run's flush buckets."""
@@ -3038,6 +3451,7 @@ def main() -> None:
     pooled = pool_path(torch, mat, rng, args.seed, kp["by_lanes"])
     sim = sim_path(capture, card)
     simdir.cleanup()
+    tools, tool_launches = tools_path(args.seed, cert, card)
 
     from at2_node_tpu_torch.ops import cuda_verify
 
@@ -3061,7 +3475,7 @@ def main() -> None:
         "route": "cuda",
         "source": "at2_node_tpu_torch/csrc/ed25519_verify.cu",
         "replaces": "at2_node_tpu/ops/pallas_verify.py:232",
-        "launches": mp["stress"]["launches"],
+        "launches": mp["stress"]["launches"] + tool_launches["ed25519_verify"],
         "mismatches": kp["mismatches"],
         "max_abs_err": kp["max_abs_err"],
         "lanes": 65536,
@@ -3073,7 +3487,8 @@ def main() -> None:
         "threads_per_signature": cuda_verify.THREADS_PER_SIGNATURE,
         **ptxas["ed25519_verify_kernel"],
         "by_lanes": {str(n): r for n, r in kp["by_lanes"].items()},
-        "main_path": runs,
+        "main_path": {**runs, "tools": {row["tool"]: row.get("launches", {}).get("ed25519_verify", 0)
+                                        for row in tools}},
         "card": card,
     }]
     # the RLC kernels' main path: phase 7's node net (the processes' counts)
@@ -3105,7 +3520,7 @@ def main() -> None:
             "route": "cuda",
             "source": "at2_node_tpu_torch/csrc/ed25519_rlc.cu",
             "replaces": replaces,
-            "launches": rlc_launches,
+            "launches": rlc_launches + tool_launches[name],
             "mismatches": rlc["mismatches"][name],
             "max_abs_err": rlc["max_abs_err"][name],
             "lanes": 65536,
@@ -3116,7 +3531,7 @@ def main() -> None:
             "library_ms": None,
             **layout_fields[name],
             "by_lanes": {str(n): r for n, r in rlc["by_lanes"][name].items()},
-            "main_path": {**rlc_nodes, "certificate": cert},
+            "main_path": {**rlc_nodes, "certificate": cert, "aggregate_bench": tool_launches[name]},
             "card": card,
         })
     # the pool: the verify kernel once a shard; its main path is phase 8's
@@ -3147,6 +3562,8 @@ def main() -> None:
         "card": card,
     })
     print(json.dumps({"sim": sim}))
+    for row in tools:
+        print(json.dumps(row))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

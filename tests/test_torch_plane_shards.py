@@ -425,6 +425,66 @@ async def test_thread_lanes_keep_every_delivery_of_a_large_drain_cycle():
     assert dropped == 17 * 256 - 4096 and delivered == 4096
 
 
+async def test_thread_shards_bumping_one_counter_lose_no_delivery():
+    """The thread shards share one counter group, and ``stats[k] += 1``
+    is a read and then a write. Forced interleaving: a shard core reads
+    ``batch_entries_delivered`` in its delivery loop, another thread bumps
+    it twice, then the core writes its stale sum back. Every entry still
+    reaches the delivered queue and every bump counts. (A plain ``set``
+    raised ``ValueError`` on the monotone counter after the loop's first
+    entry: the rest were marked delivered but never handed over, and the
+    slot then retired with them, the phase-9a stall.)"""
+    import threading
+
+    from at2_node_tpu_torch.obs.registry import Counter
+
+    net = Net("port", 3, seed=45, shards=2, executor="thread")
+    m = net.x.m
+    group = net.bcast.stats
+    real = group._counters["batch_entries_delivered"]
+    fired = []
+
+    class Interleaved(Counter):
+        @property
+        def value(self):
+            value = real.value
+            if not fired and threading.current_thread() is not threading.main_thread():
+                fired.append(value)
+
+                def other_shard():
+                    group["batch_entries_delivered"] += 1
+                    group["batch_entries_delivered"] += 1
+
+                bumper = threading.Thread(target=other_shard)
+                bumper.start()
+                bumper.join()
+            return value
+
+        def inc(self, n=1):
+            real.inc(n)
+
+        def set(self, value):
+            real.set(value)
+
+    group._counters["batch_entries_delivered"] = Interleaved(real.name)
+    n = 16
+    async with net:
+        entries = [net.payload(net.client(), amount=1) for _ in range(n)]
+        batch = m.TxBatch.create(net.peer_keys[0], 1, b"".join(p.encode()[1:] for p in entries))
+        await net.inject(batch, peer=net.mesh.peers[0])
+        for phase in (m.BATCH_ECHO, m.BATCH_READY):
+            await _wait(lambda: any(isinstance(x, m.BatchAttestation) and x.phase == phase
+                                    for x in net.sent_messages()),
+                        f"the node attests phase {phase}", 20)
+            for kp in net.peer_keys:
+                await net.inject(net.batch_vote(kp, batch, phase, (1 << n) - 1))
+        await _wait(lambda: net.bcast.delivered.qsize() == n, "every entry delivers", 20)
+    assert fired == [0]
+    assert real.value == n + 2
+    got = [net.bcast.delivered.get_nowait() for _ in range(n)]
+    assert sorted(p.sender for p in got) == sorted(p.sender for p in entries)
+
+
 async def test_process_plane_packs_registry_releases():
     """A burst of commits releases thousands of registry entries; the
     owner packs them into few ring records, so small rings drop none (one

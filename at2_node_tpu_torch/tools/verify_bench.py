@@ -19,8 +19,11 @@ Each config reports the best of ``--trials`` trials. The result is ONE
 JSON line on stdout in the reference's schema (``metric``, ``value``,
 ``unit``, ``vs_baseline`` against BASELINE.json's 50,000 verifies/s, the
 ``grid``), with the card's stamp (name and power limit, ``card``) beside
-every value; the per-bucket lines go to stderr as they complete, and the
-document goes to ``--out`` only when that is given.
+every value; on the card a ``roofline`` block scores the headline
+bucket's device-only rate (``ops/roofline.py``: its share of the card's
+int32 multiply-add issue ceiling). The per-bucket lines go to stderr as
+they complete, and the document goes to ``--out`` only when that is
+given.
 
 The reference's tunnel machinery is not copied: no probe child, no
 last-good re-emission, no OpenSSL fallback grid. If the card fails, the
@@ -187,6 +190,13 @@ def run(device: str = "cuda", grid=None, trials: int = TRIALS, log=None) -> tupl
         "cpu_openssl_1core_rate": round(cpu_rate, 1),
         "card": card,
     }
+    if dev.type == "cuda":
+        # the device-only rate against the card's int32 multiply-add issue
+        # ceiling (ops/roofline.py documents the counting); a card with no
+        # ceilings raises
+        from ..ops import roofline
+
+        result["roofline"] = roofline.model(headline["device_only"], roofline.card_of(dev))
     return result, bitmasks
 
 

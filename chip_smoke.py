@@ -87,7 +87,12 @@ is printed):
    and launched the kernel once per batch (the process's launch count in
    the ``/statusz`` build block, read before and after each run; a
    ``server run`` process holds one verifier), each build block
-   names the card, and every server exits 0 on SIGTERM.
+   names the card, and every server exits 0 on SIGTERM. Between the
+   runs, one grpc-web ``SendAsset`` from a fresh account goes to node 0's
+   RPC port as the browser wallet sends it (binary mode, one HTTP/1.1
+   POST, the request in one ``net/webmux`` frame): grpc-status 0, CORS
+   allow-all, the transfer committed on every node (the recipient's
+   balance read back from each) and node 0's verify kernel launched.
 7. The node service on the RLC route: phase 6's net with ``[verifier]
    mode = "rlc"`` (every other key at its default); run B sends 16
    transfers a client. Phase 6's checks, and on each node over each run:
@@ -211,7 +216,10 @@ is printed):
    11), every row into a temporary directory:
    12a. ``verify_bench`` at its three buckets (65,536, 8,192, 1,024 lanes,
        3 trials): each bucket's kernel bitmask must equal the plain
-       version's on the card and the expected verdicts (all valid).
+       version's on the card and the expected verdicts (all valid); the
+       tool's ``roofline`` block (``ops/roofline.py`` on the 65,536-lane
+       device-only rate) must give ``roofline_pct`` in (0, 105], printed
+       beside phase 3's time and bound at that bucket and the card.
    12b. ``aggregate_bench --cert-route`` at n = 64: the verify kernel's
        verdicts on a clean and a tampered certificate, and the RLC
        kernels' verdicts and eq_ok, which must equal phase 3c's; then the
@@ -261,13 +269,6 @@ from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
-
-# Hopper H100 SXM published peaks: 3.35 TB/s of HBM3; 67 TFLOP/s float32
-# outside the tensor cores is 132 SMs x 128 lanes x 2 x 1.98 GHz, and the
-# SM issues 32-bit integer multiply-adds at half its float32 lane count
-# (64 per clock), so 132 x 64 x 1.98e9 = 16.7e12 int32 multiply-adds/s.
-H100_BYTES_PER_S = 3.35e12
-H100_INT32_MULADD_PER_S = 132 * 64 * 1.98e9
 
 # every bucket of the ladder the main path launches, a ragged batch (1,000)
 # and a partial last bitmask byte (77)
@@ -595,18 +596,11 @@ def cuda_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(n: int) -> tuple[float, str]:
-    from at2_node_tpu_torch.ops import cuda_verify
-
-    ops_s = n * cuda_verify.INT32_MULADD_SLOTS_PER_LANE / H100_INT32_MULADD_PER_S
-    nbytes = n * 129 + (n + 7) // 8 + 4 * len(cuda_verify.lane_consts())
-    bytes_s = nbytes / H100_BYTES_PER_S
-    return 1e3 * max(ops_s, bytes_s), ("operations" if ops_s >= bytes_s else "bytes")
-
-
 def kernel_vs_plain(torch, mat: Material, rng) -> dict:
-    from at2_node_tpu_torch.ops import cuda_verify
+    from at2_node_tpu_torch.ops import cuda_verify, roofline
     from at2_node_tpu_torch.ops import ed25519 as v
+
+    ceilings = roofline.card_of("cuda:0")  # the bounds' one source; raises on an unknown card
 
     rows_by_lanes = {}
     mismatches = 0
@@ -631,7 +625,7 @@ def kernel_vs_plain(torch, mat: Material, rng) -> dict:
         reps = max(3, min(50, 200_000 // n))
         ms = cuda_ms(torch, lambda: cuda_verify.verify_packed(dev), reps)
         plain_ms = cuda_ms(torch, lambda: v.verify_packed(dev), 1)
-        bms, by = bound_ms(n)
+        bms, by = roofline.bound_ms(n, ceilings)
         rows_by_lanes[n] = {
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
             "sigs_per_s": n / (ms / 1e3), "mismatches": bad,
@@ -644,31 +638,6 @@ def kernel_vs_plain(torch, mat: Material, rng) -> dict:
 
 
 # -- phase 3b --------------------------------------------------------------
-
-
-def rlc_bounds(n: int, nparts: int) -> dict:
-    """The least time of each RLC kernel on these n lanes: the larger of
-    its bytes over the memory rate and its multiply-add slots over the
-    issue rate. The lanes kernel reads each row and the constants and
-    writes a code a lane and a partial point (nparts of them, by layout),
-    and does every lane's operations (the whole layout's count, the
-    function's least) and the n - nparts additions of its block trees; the
-    fold reads the partials and does nparts - 1 additions."""
-    from at2_node_tpu_torch.ops import cuda_rlc, cuda_verify
-
-    point = 4 * 40
-    out = {}
-    for name, ops, nbytes in (
-        ("ed25519_rlc_lanes",
-         n * cuda_rlc.INT32_MULADD_SLOTS_PER_LANE[cuda_rlc.WHOLE]
-         + (n - nparts) * cuda_rlc.INT32_MULADD_SLOTS_PER_FOLD_ADD,
-         n * 161 + n + nparts * point + 4 * len(cuda_verify.lane_consts())),
-        ("ed25519_rlc_fold", (nparts - 1) * cuda_rlc.INT32_MULADD_SLOTS_PER_FOLD_ADD,
-         nparts * point + 1 + 40),
-    ):
-        ops_s, bytes_s = ops / H100_INT32_MULADD_PER_S, nbytes / H100_BYTES_PER_S
-        out[name] = (1e3 * max(ops_s, bytes_s), "operations" if ops_s >= bytes_s else "bytes")
-    return out
 
 
 def fold_known_answer(torch, lib, consts, work, rng) -> int:
@@ -711,9 +680,10 @@ def rlc_vs_plain(torch, mat: Material, rng) -> dict:
     its partials (and over one block, the alternative it replaced) and the
     verify kernel are timed on the clean batch."""
     from at2_node_tpu_torch.ops import aggregate as agg
-    from at2_node_tpu_torch.ops import cuda_rlc, cuda_verify
+    from at2_node_tpu_torch.ops import cuda_rlc, cuda_verify, roofline
     from at2_node_tpu_torch.ops import ed25519 as v
 
+    ceilings = roofline.card_of("cuda:0")
     lib = cuda_rlc.build()
     consts = torch.as_tensor(cuda_verify.lane_consts()).cuda()
     wave = cuda_rlc.split_wave_lanes(torch.device("cuda", 0))
@@ -794,7 +764,7 @@ def rlc_vs_plain(torch, mat: Material, rng) -> dict:
                     lib, dev, consts, out.data_ptr(), work, stream), reps)
                 fold_ms[name] = cuda_ms(torch, lambda: cuda_rlc.launch_fold(
                     lib, consts, out.data_ptr() + n, work, stream), reps)
-                bounds[name] = rlc_bounds(n, work.nparts)
+                bounds[name] = roofline.rlc_bounds(n, work.nparts, ceilings)
             # the fold's alternative: one block of 32 quads, each adding
             # its share of the partials in a row
             whole = works["whole"]
@@ -806,7 +776,7 @@ def rlc_vs_plain(torch, mat: Material, rng) -> dict:
             fold_plain_ms = cuda_ms(torch, lambda: agg.is_identity(
                 agg.tree_reduce_points(works[cuda_rlc.LAYOUT_NAMES[chosen]].points().to(torch.int64))), 1)
             c = cuda_rlc.LAYOUT_NAMES[chosen]
-            split_ops_ms = 1e3 * n * cuda_rlc.INT32_MULADD_SLOTS_PER_LANE[cuda_rlc.SPLIT] / H100_INT32_MULADD_PER_S
+            split_ops_ms = 1e3 * n * cuda_rlc.INT32_MULADD_SLOTS_PER_LANE[cuda_rlc.SPLIT] / ceilings.int32_muladd_per_s
             for kname, ms, pms in (("ed25519_rlc_lanes", lanes_ms, plain_ms),
                                    ("ed25519_rlc_fold", fold_ms, fold_plain_ms)):
                 bms, by = bounds[c][kname]
@@ -1652,6 +1622,63 @@ async def check_replay(net: ServerNet, clients: list, per_client: list) -> None:
                       f"the replay says {replay[kp.public.hex()]}")
 
 
+async def grpcweb_transfer(net: ServerNet, rng, kind: str, deadline_s: float) -> dict:
+    """Phase 6, after run A: one grpc-web ``SendAsset`` from a fresh
+    account to node 0's RPC port, as the browser wallet sends it (binary
+    mode: one HTTP/1.1 POST, the request in one ``net/webmux._frame``). It
+    must answer grpc-status 0 with CORS allow-all and commit on every node
+    (the recipient's balance read back through each), and on the card
+    node 0's verify kernel must have launched for it."""
+    from at2_node_tpu_torch.client import Client
+    from at2_node_tpu_torch.crypto.keys import SignKeyPair
+    from at2_node_tpu_torch.ledger.account import INITIAL_BALANCE
+    from at2_node_tpu_torch.net.webmux import _DATA_FRAME, _TRAILER_FRAME, _frame, _parse_frames
+    from at2_node_tpu_torch.proto import at2_pb2 as pb
+    from at2_node_tpu_torch.types import transfer_signing_bytes
+
+    sender, recipient = SignKeyPair(rng.bytes(32)), SignKeyPair(rng.bytes(32))
+    amount = 77
+    request = pb.SendAssetRequest(
+        sender=sender.public, sequence=1, recipient=recipient.public, amount=amount,
+        signature=sender.sign(transfer_signing_bytes(sender.public, 1, recipient.public, amount)))
+    body = _frame(request.SerializeToString())
+    before = [net.statusz(i) for i in range(net.n)]
+    t0 = time.perf_counter()
+    reader, writer = await asyncio.open_connection("127.0.0.1", net.rpc_ports[0])
+    writer.write((f"POST /at2.AT2/SendAsset HTTP/1.1\r\nHost: node\r\n"
+                  f"Content-Type: application/grpc-web+proto\r\nX-Grpc-Web: 1\r\n"
+                  f"Content-Length: {len(body)}\r\nConnection: close\r\n\r\n").encode() + body)
+    await writer.drain()
+    raw = await asyncio.wait_for(reader.read(-1), deadline_s)
+    writer.close()
+    head, _, payload = raw.partition(b"\r\n\r\n")
+    lines = head.decode("latin-1").split("\r\n")
+    headers = {k.strip().lower(): v.strip() for k, _, v in (h.partition(":") for h in lines[1:])}
+    check(" 200 " in lines[0] + " ", f"grpc-web SendAsset: {lines[0]}")
+    check(headers.get("access-control-allow-origin") == "*", f"grpc-web SendAsset: headers {headers}")
+    frames = _parse_frames(payload)
+    trailers = [d.decode() for f, d in frames if f == _TRAILER_FRAME]
+    check([f for f, _ in frames].count(_DATA_FRAME) == 1 and any(
+        line.lower().replace(" ", "") == "grpc-status:0" for t in trailers for line in t.split("\r\n")),
+        f"grpc-web SendAsset: frames {frames}")
+    reply_s = time.perf_counter() - t0
+    wait_committed(net, [b["stats"]["committed"] + 1 for b in before], deadline_s)
+    commit_s = time.perf_counter() - t0
+    for i, port in enumerate(net.rpc_ports):
+        async with Client(f"http://127.0.0.1:{port}") as conn:
+            bal = await conn.get_balance(recipient.public)
+            seq = await conn.get_last_sequence(sender.public)
+        check((bal, seq) == (INITIAL_BALANCE + amount, 1),
+              f"grpc-web SendAsset: node {i} has the recipient at {bal}, the sender at sequence {seq}")
+    launches = net.statusz(0)["build"]["kernel_launches"] - before[0]["build"]["kernel_launches"]
+    check(kind != "cuda" or launches > 0, "grpc-web SendAsset: node 0 launched no verify kernel")
+    log(f"node net (grpc-web SendAsset): one transfer from a fresh account, binary mode, to node 0: "
+        f"grpc-status 0 in {reply_s:.3f} s, committed on all {net.n} nodes in {commit_s:.3f} s (the "
+        f"recipient's balance {INITIAL_BALANCE + amount} read back from each); node 0's verify kernel "
+        f"launches grew by {launches}")
+    return {"reply_s": reply_s, "commit_s": commit_s, "launches": launches}
+
+
 async def node_run(net: ServerNet, label: str, clients: list, transfers: list, batched: bool,
                    twins: dict, want_seq: int, deadline_s: float) -> dict:
     """One phase-6 run: client c submits its transfers, in order, to node c
@@ -1741,6 +1768,8 @@ async def node_path(seed: int, by_lanes, card, kind: str = "cuda", n_clients: in
                 refused_total.update(run["refused"])
                 runs[prefix.replace(" ", "_") + name] = node_checks(
                     net, run, by_lanes, card, kind, refused_total, mode)
+                if batched and mode == "auto":
+                    runs["node_grpc_web"] = await grpcweb_transfer(net, rng, kind, deadline_s)
             check(sum(refused_total.values()) == len(twins),
                   f"{sum(refused_total.values())} of {len(twins)} tampered transfers refused")
             # the ledgers: every valid transfer committed on every node
@@ -3065,10 +3094,13 @@ def write_json(path: str, doc: dict) -> None:
         f.write("\n")
 
 
-def tools_verify(outdir: str, card: str, device: str = "cuda") -> dict:
+def tools_verify(outdir: str, card: str, device: str = "cuda", k1: dict | None = None) -> dict:
     """12a: ``verify_bench`` at its three buckets; each bucket's bitmask
     must equal the plain version's on the card and the expected one (the
-    tool's batches are all valid)."""
+    tool's batches are all valid). On the card its ``roofline`` block
+    (the 65,536-lane device-only rate) must score in (0, 105]%, and is
+    printed beside phase 3's kernel time and bound at that bucket (``k1``,
+    phase 3's row); on the host the tool writes no such block."""
     from at2_node_tpu_torch.ops import ed25519 as v
     from at2_node_tpu_torch.tools import verify_bench
 
@@ -3086,6 +3118,19 @@ def tools_verify(outdir: str, card: str, device: str = "cuda") -> dict:
     check(mismatches == 0, f"verify_bench (12a): kernel, plain version and expected verdicts differ on "
           f"{mismatches} lanes")
     check(launches["ed25519_verify"] > 0 or device != "cuda", "verify_bench (12a) launched no verify kernel")
+    if device == "cuda":
+        roof = result["roofline"]
+        check(0 < roof["roofline_pct"] <= 105, f"verify_bench (12a): roofline_pct {roof['roofline_pct']} "
+              f"outside (0, 105]")
+        share = f"; phase 3: {k1['ms']:.3f} ms against its {k1['bound_ms']:.3f} ms bound, " \
+                f"{100 * k1['bound_ms'] / k1['ms']:.1f}%" if k1 else ""
+        log(f"verify_bench (12a) roofline at {result['bucket']} lanes: roofline_pct {roof['roofline_pct']}% "
+            f"({roof['achieved_int32_muladd_tops']} of {roof['int32_muladd_peak_tops']} tera int32 "
+            f"multiply-adds/s, {roof['chip_model']}, {roof['sm_count']} SMs; "
+            f"{roof['int32_muladd_slots_per_sig']:,} slots a signature, compute/memory bound ratio "
+            f"{roof['compute_vs_memory_bound_ratio']:.0f}){share}; {card}")
+    else:
+        check("roofline" not in result, "verify_bench (12a) wrote a roofline block on the host")
     write_json(os.path.join(outdir, "BENCH_r01.json"),
                {"cmd": "python -m at2_node_tpu_torch.tools.verify_bench", "rc": 0, "parsed": result})
     for bucket, row in result["grid"].items():
@@ -3374,7 +3419,7 @@ def tools_regress(outdir: str) -> dict:
             "regressions": report.rstrip().splitlines()[-1]}
 
 
-def tools_path(seed: int, cert: dict, card: str, device: str = "cuda") -> tuple:
+def tools_path(seed: int, cert: dict, card: str, device: str = "cuda", k1: dict | None = None) -> tuple:
     """Phase 12: the port's measurement tools on the card (``device``
     "cpu" rehearses it on the host), every row into a temporary
     directory; returns (one JSON line's object a tool, the kernel
@@ -3383,7 +3428,7 @@ def tools_path(seed: int, cert: dict, card: str, device: str = "cuda") -> tuple:
 
     t12 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="at2-phase12-") as outdir:
-        rows = [tools_verify(outdir, card, device), tools_aggregate(outdir, cert, card, device),
+        rows = [tools_verify(outdir, card, device, k1), tools_aggregate(outdir, cert, card, device),
                 tools_plane(outdir, card, device), tools_e2e(outdir, card, device),
                 asyncio.run(tools_net_path(seed, outdir, card, device)),
                 tools_durability(outdir, card, device), tools_regress(outdir)]
@@ -3451,7 +3496,7 @@ def main() -> None:
     pooled = pool_path(torch, mat, rng, args.seed, kp["by_lanes"])
     sim = sim_path(capture, card)
     simdir.cleanup()
-    tools, tool_launches = tools_path(args.seed, cert, card)
+    tools, tool_launches = tools_path(args.seed, cert, card, k1=kp["by_lanes"][65536])
 
     from at2_node_tpu_torch.ops import cuda_verify
 

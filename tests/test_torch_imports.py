@@ -138,3 +138,61 @@ def test_device_tools_raise_without_a_card_unless_asked_for_the_cpu(call, monkey
     with pytest.raises(RuntimeError, match="no CUDA device is available; pass --(device|verifier) cpu"):
         mod.main(argv)
     assert os.listdir(tmp_path) == []
+
+
+# -- the package APIs -----------------------------------------------------
+
+PACKAGE_APIS = ("ledger", "obs", "native")
+
+
+def test_package_apis_load_no_torch():
+    """A plane shard worker imports the ledger, obs and native packages;
+    their package-level exports must not load torch (nor CUDA with it)."""
+    code = (
+        "import sys\n"
+        f"sys.path.insert(0, {REPO!r})\n"
+        "from at2_node_tpu_torch.ledger import Accounts, RecentTransactions\n"
+        "from at2_node_tpu_torch.obs import Registry, SloEngine, PhaseAccounting\n"
+        "from at2_node_tpu_torch.native import ingest_available, prep_packed_native\n"
+        "import at2_node_tpu_torch.parallel.plane_worker\n"
+        "bad = sorted(m for m in sys.modules if m == 'torch' or m.startswith('torch.'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = {k: val for k, val in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, env=env, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize("package", PACKAGE_APIS)
+def test_package_api_exports_the_references_names(package):
+    """Each package exports the reference's names; the one deliberate
+    difference is native's ``prep_packed_native`` (the port's prep writes
+    packed rows) where the reference has ``prep_batch_native``."""
+    import importlib
+
+    port = importlib.import_module(f"at2_node_tpu_torch.{package}")
+    ref = importlib.import_module(f"at2_node_tpu.{package}")
+    renamed = {"prep_batch_native": "prep_packed_native"}
+    want = {renamed.get(n, n) for n in ref.__all__}
+    assert want <= set(port.__all__), want - set(port.__all__)
+    assert all(hasattr(port, name) for name in port.__all__)
+    assert not hasattr(port, "prep_batch_native")
+
+
+def test_roofline_imports_neither_jax_nor_the_jax_package():
+    path = os.path.join(PACKAGE_DIR, "ops", "roofline.py")
+    with open(path, encoding="utf-8") as f:
+        text = f.read()
+    assert not [m.group(0) for pat in FORBIDDEN for m in pat.finditer(text)]
+    code = (
+        "import sys\n"
+        f"sys.path.insert(0, {REPO!r})\n"
+        "from at2_node_tpu_torch.ops import roofline\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'at2_node_tpu' or m.startswith('at2_node_tpu.')]\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = {k: val for k, val in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, env=env, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr

@@ -426,11 +426,14 @@ async def test_chip_smoke_phase6_runs_with_the_cpu_kind(capsys):
     runs = await chip_smoke.node_path(9, None, None, kind="cpu", n_clients=4, per_batched=6,
                                       per_unary=3, n_tampered=2, deadline_s=60.0)
     out = capsys.readouterr().out
-    assert set(runs) == {"node_grpc_batched", "node_grpc_unary"}
+    assert set(runs) == {"node_grpc_batched", "node_grpc_unary", "node_grpc_web"}
     assert runs["node_grpc_batched"]["transfers"] == 24 and runs["node_grpc_unary"]["transfers"] == 12
-    for run in runs.values():
+    for run in (runs["node_grpc_batched"], runs["node_grpc_unary"]):
         assert len(run["nodes"]) == 4 and all(n["signatures"] > 0 for n in run["nodes"])
     assert sum(n["rejected_at_ingress"] for n in runs["node_grpc_unary"]["nodes"]) == 2
+    # between the runs, one grpc-web SendAsset committed on every node
+    assert 0 < runs["node_grpc_web"]["reply_s"] <= runs["node_grpc_web"]["commit_s"]
+    assert "node net (grpc-web SendAsset): one transfer from a fresh account" in out
     assert "2 tampered transfers refused with INVALID_ARGUMENT" in out
     assert "every server exited 0 on SIGTERM" in out
 

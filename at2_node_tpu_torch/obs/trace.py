@@ -304,7 +304,10 @@ class TxTrace:
         records (the ring is already bounded by ``done_cap``)."""
         done = list(self._done)
         if limit is not None and limit >= 0:
-            done = done[len(done) - limit:] if limit else []
+            # a limit past the ring's length keeps the whole ring (a bare
+            # ``len(done) - limit`` start would go negative and count
+            # from the end)
+            done = done[max(0, len(done) - limit):] if limit else []
         return {
             "live": [
                 self._export(k, rec, None) for k, rec in self._live.items()

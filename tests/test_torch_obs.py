@@ -367,6 +367,28 @@ class TestTxTrace:
         assert [r_["seq"] for r_ in tr.tracez(limit=2)["completed"]] == [4, 5]
         assert tr.tracez(limit=0)["completed"] == []
 
+    def test_limit_past_the_ring_keeps_every_record(self):
+        # ``limit`` larger than the completed ring returns all of it. The
+        # reference slices from ``len - limit``, which goes negative there
+        # and counts from the end: 5 records under limit=8 give its newest
+        # 3; the port repairs that (a steady sender's oldest transfers
+        # vanished from /tracez?limit=65536 once a node held over 32,768)
+        from at2_node_tpu.obs.registry import Registry as RefRegistry
+        from at2_node_tpu.obs.trace import TxTrace as RefTxTrace
+
+        def seqs(tr_cls, reg, limit):
+            tr = tr_cls(reg, sample_every=1, done_cap=16)
+            for seq in range(1, 6):
+                key = (b"s" * 32, seq)
+                tr.begin(key, now=float(seq))
+                tr.stamp(key, "committed", now=seq + 0.5)
+            return [r_["seq"] for r_ in tr.tracez(limit=limit)["completed"]]
+
+        for limit in (5, 6, 8, 10, 16, 65536):
+            assert seqs(TxTrace, Registry(), limit) == [1, 2, 3, 4, 5]
+        assert seqs(TxTrace, Registry(), 3) == seqs(RefTxTrace, RefRegistry(), 3) == [3, 4, 5]
+        assert seqs(RefTxTrace, RefRegistry(), 8) == [3, 4, 5]
+
     def test_relay_records_join_without_feeding_histograms(self):
         # a stamp for a key never seen at ingress opens a RELAY span:
         # counted separately, kept out of the latency histograms (no

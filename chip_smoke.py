@@ -186,7 +186,7 @@ is printed):
        exits 0 on SIGTERM, the broker 0 on SIGINT.
 11. The deterministic simulator (``at2_node_tpu_torch/sim``, run after
    phase 8) through the port's five CLIs, each a subprocess started
-   without PYTHONHASHSEED (the tools pin it), four at a time; every hash
+   without PYTHONHASHSEED (the tools pin it), eight at a time; every hash
    must equal the reference's in ``SIM_GATES``, printed by the JAX
    package's CLIs for the gates of its ``scripts/ci.sh``. The sim runs on
    the host CPU and launches no kernel.
@@ -261,7 +261,7 @@ is printed):
    ``Register`` of each key at every node answers its id), then each
    sends a unary ``SendAsset`` every 100 ms (400 tx/s), round-robin over
    the nodes; 3 s in, 80 fresh clients start within milliseconds of each
-   other, each sending 256 transfers (signed beforehand) in
+   other, each sending 128 transfers (signed beforehand) in
    ``SendAssetBatch`` chunks of 64, chunk k of client c to node (c + k)
    mod 4, a chunk only once the one before it was acknowledged, each call
    through ``RetryPolicy(budget=8)`` (a client whose budget runs out
@@ -291,7 +291,48 @@ is printed):
    share of the trace window. Whether arm on held the reference's bar
    (the steady p99 below arm off's, Jain's index >= 0.8) is printed, not
    gated on.
-14. One JSON line describing the kernels (their times and bound at every
+14. The reference's overload A/B bench served (run after phase 13): its
+   cells (``sim/scenarios.py::run_overload_ab``: flash_crowd and
+   hot_account, each uncontrolled then controlled) on four ``server run``
+   nodes with ``kind = "cuda"`` a net, at the cell's thresholds of two
+   peers (f = 1), in place of its modeled verifier.
+   A calibration pair of nets (no tables) runs the same closed-loop unary
+   ``SendAsset`` traffic (256 keys, 4 s) one net after the other: C_tx is
+   the mean of their committed rates, beside the signatures the four
+   verifiers checked a committed transfer, the queue peak and wait and
+   the sender processes' CPU. Each workload's schedule is the reference cell's
+   (its seed derivation, the port's generator; 120 clients, a crowd of 80,
+   12 s) at ``n_tx = round(12 s x C_tx / capacity_frac)``; its pair of
+   nets starts together and stays up through both arms: uncontrolled
+   with no ``[overload]`` table, controlled with
+   ``overload_objectives(cap)`` written key by key (cap: the per-node
+   verify rate at C_tx); every node with trace, done and recorder caps of
+   ``max(4096, 4 n_tx)``. The steady tier registers (every node's
+   ``directory_size`` counts it, ``Register`` answers its id at every
+   node); four spawned sender processes, one a node, send each event as
+   one unary ``SendAsset`` at its offered time through
+   ``RetryPolicy(budget=4)``. Gated, after all four cells printed: (a)
+   every expected transfer (acknowledged, every earlier sequence of its
+   sender acknowledged) commits on every node, each node's ledger equal
+   to the replay of the ledger's rule in the node's own commit order (its
+   completed-trace ring), ``slots_undelivered`` 0, no drop counter moved,
+   every server exits 0, and a call fails only as a shed
+   (RESOURCE_EXHAUSTED) or as one the node's gRPC server never took up,
+   cancelled by grpc after 30 s (CANCELLED, at least 29.5 s after it went
+   out); (b) the uncontrolled arms shed nothing: no RESOURCE_EXHAUSTED,
+   no ``overload_shed_*``, pressure 0; (c) the controlled flash_crowd arm
+   sheds on some node, every refusal RESOURCE_EXHAUSTED with a hint in
+   [250, 3000] ms, and RetryPolicy retries, each no sooner than 0.75 x
+   its hint after the refusal (a retried transfer committing held on the
+   card only sometimes: a tracked strict check, printed every run);
+   (d) K1 launches on every node in every arm; (e) the p99 of a send's
+   lateness against its offered time is under 0.5 s. A row a cell (the reference cell's keys,
+   ``card``, C_tx, sigs a transfer, K1 launches, the controller's peak,
+   burn, seconds to level 0) goes to
+   ``at2_node_tpu_torch/build/bench/overload_ab_served.json``; the
+   reference's bar per workload (uncontrolled breaches latency_slo_ms,
+   controlled holds it with fairness >= 0.8) is printed, not gated on.
+15. One JSON line describing the kernels (their times and bound at every
    shape, every main-path run, the ptxas figures), then the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -2935,7 +2976,7 @@ assert offending[0]["nodes"] >= 2, "timeline must span multiple nodes"
 assert offending[0]["stragglers"], "straggler attribution missing"
 print(len(r.violations), offending[0]["nodes"])
 """
-SIM_WORKERS = 4  # sim processes at once on the card's machine's 8 cores
+SIM_WORKERS = 8  # sim processes at once, one a core of the card's machine
 SIM_TIMEOUT_S = 600
 
 
@@ -3480,16 +3521,20 @@ def tools_path(seed: int, cert: dict, card: str, device: str = "cuda", k1: dict 
     import tempfile
 
     t12 = time.perf_counter()
+    rows, seconds = [], []
     with tempfile.TemporaryDirectory(prefix="at2-phase12-") as outdir:
-        rows = [tools_verify(outdir, card, device, k1), tools_aggregate(outdir, cert, card, device),
-                tools_plane(outdir, card, device), tools_e2e(outdir, card, device),
-                asyncio.run(tools_net_path(seed, outdir, card, device)),
-                tools_durability(outdir, card, device), tools_regress(outdir)]
+        for step in (lambda: tools_verify(outdir, card, device, k1), lambda: tools_aggregate(outdir, cert, card, device),
+                     lambda: tools_plane(outdir, card, device), lambda: tools_e2e(outdir, card, device),
+                     lambda: asyncio.run(tools_net_path(seed, outdir, card, device)),
+                     lambda: tools_durability(outdir, card, device), lambda: tools_regress(outdir)):
+            t = time.perf_counter()
+            rows.append(step())
+            seconds.append(round(time.perf_counter() - t, 1))
     totals = Counter()
     for row in rows:
         totals.update(row.get("launches", {}))
-    log(f"phase 12 (the measurement tools) took {time.perf_counter() - t12:.1f} s; kernel launches "
-        f"{dict(totals)}; {card}")
+    log(f"phase 12 (the measurement tools) took {time.perf_counter() - t12:.1f} s (12a-12g: {seconds} s); "
+        f"kernel launches {dict(totals)}; {card}")
     return rows, totals
 
 
@@ -3498,7 +3543,7 @@ def tools_path(seed: int, cert: dict, card: str, device: str = "cuda", k1: dict 
 
 OVERLOAD_STEADY = 40  # registered clients, one unary SendAsset each every STEADY_PERIOD_S
 OVERLOAD_CROWD = 80  # fresh clients: the reference A/B's 120/80 split (sim/scenarios.py)
-OVERLOAD_CROWD_PER = 256  # transfers a crowd client
+OVERLOAD_CROWD_PER = 128  # transfers a crowd client (a depth that leaves time for phase 14)
 OVERLOAD_CHUNK = 64  # transfers a crowd client's SendAssetBatch call
 OVERLOAD_RETRY_BUDGET = 8  # RetryPolicy(budget) of every client
 STEADY_PERIOD_S = 0.1  # 40 clients: 400 tx/s
@@ -3712,19 +3757,17 @@ def overload_net(on: bool, kind: str, workdir: str) -> ServerNet:
     return ServerNet(kind, workdir, tables=tables)
 
 
-async def register_steady(net: ServerNet, clients: list, keys: list, seeds: list) -> None:
-    """The steady tier joins before the crowd: each key is registered
-    through node c mod n and commits one transfer (``seeds[c]``, sequence
-    1); then every node's ``directory_size`` must count them all and a
-    ``Register`` of each key at every node must answer the id it was
-    given (a node that did not know a key would assign a new one)."""
+async def register_keys(net: ServerNet, clients: list, keys: list, numbers=None) -> int:
+    """Each key is registered through node c mod n, c its number
+    (``numbers[k]``, by default k; ``clients[i]`` talks to node i); then
+    every node's ``directory_size`` must count them all and a ``Register``
+    of each key at every node must answer the id it was given (a node
+    that did not know a key would assign a new one). The directory size
+    every node reached."""
     n = net.n
-    ids = await asyncio.gather(*(clients[c % n].register(kp.public) for c, kp in enumerate(keys)))
-    before = [net.committed(i) for i in range(n)]
-    await asyncio.gather(*(clients[c % n].send_asset(kp, 1, *seeds[c]) for c, kp in enumerate(keys)))
-    wait_committed(net, [b + len(keys) for b in before], 60.0)
+    numbers = range(len(keys)) if numbers is None else numbers
+    ids = await asyncio.gather(*(clients[c % n].register(kp.public) for c, kp in zip(numbers, keys)))
     t_end = time.perf_counter() + 30.0
-    sizes = [0] * n
     while True:
         sizes = [int(net.metrics(i)["at2_directory_size"]) for i in range(n)]
         if sizes == [len(keys)] * n:
@@ -3733,9 +3776,21 @@ async def register_steady(net: ServerNet, clients: list, keys: list, seeds: list
         time.sleep(0.1)
     for i in range(n):
         again = await asyncio.gather(*(clients[i].register(kp.public) for kp in keys))
-        check(list(again) == list(ids), f"node {i}'s directory lacks steady clients")
+        check(list(again) == list(ids), f"node {i}'s directory lacks registered clients")
+    return sizes[0]
+
+
+async def register_steady(net: ServerNet, clients: list, keys: list, seeds: list) -> None:
+    """The steady tier joins before the crowd: ``register_keys``, then
+    each key commits one transfer (``seeds[c]``, sequence 1) on every
+    node."""
+    n = net.n
+    size = await register_keys(net, clients, keys)
+    before = [net.committed(i) for i in range(n)]
+    await asyncio.gather(*(clients[c % n].send_asset(kp, 1, *seeds[c]) for c, kp in enumerate(keys)))
+    wait_committed(net, [b + len(keys) for b in before], 60.0)
     log(f"overload node net: {len(keys)} steady clients registered (through node c mod {n}) and one "
-        f"transfer each committed on all {n} nodes; directory_size {sizes[0]} on every node, and Register "
+        f"transfer each committed on all {n} nodes; directory_size {size} on every node, and Register "
         f"of each key at every node answered the id it was given")
 
 
@@ -4169,6 +4224,882 @@ async def overload_path(seed: int, by_lanes, card, card_line: str, kind: str = "
             "launches": off["launches"] + on_["launches"], "seconds": seconds}
 
 
+# -- phase 14 --------------------------------------------------------------
+
+
+AB_WORKLOADS = ("flash_crowd", "hot_account")
+# the reference bench's population and run length (run_overload_ab)
+AB_CLIENTS = 120
+AB_CROWD = 80
+AB_DURATION_S = 12.0
+AB_RETRY_BUDGET = 4  # the reference cell's retry_budget
+AB_FAIRNESS_FLOOR = 0.8  # the reference cell's fairness_floor
+# the reference cell's f = 1 of 4 nodes: SimNet's thresholds, two peers
+AB_THRESHOLDS = "echo_threshold = 2\nready_threshold = 2\n"
+AB_LATENESS_P99_S = 0.5  # gate (e): the p99 of a send's lateness against its offered time
+AB_CHANNELS = 4  # gRPC channels (a TCP connection each) a sender process opens to its node
+AB_LEAD_S = 1.0  # the schedule starts this long after every sender is ready
+AB_SETTLE_S = 120.0  # every node reaches every sender's expected sequence within this
+AB_QUIET_S = 0.5  # the committed counts hold still this long before the sequences are read
+# a call the server's event loop has not taken up this long is cancelled by
+# grpc (its max unrequested time in server, 30 s by default)
+AB_UNREQUESTED_S = 29.5
+CAL_SECONDS = 4.0  # closed-loop calibration on each net of the calibration pair
+CAL_CLIENTS = 256  # calibration keys, closed loop, CAL_CLIENTS / NET_NODES a sender process
+
+
+def ab_sender_main(conn) -> None:
+    """A phase-14 sender process: it serves jobs from ``conn`` (a Pipe end)
+    until ``("stop",)``. A job is ``("calibrate", port, keys, recipients,
+    seconds, seed)`` or ``("schedule", port, job)``; the sender prepares it
+    (keys, signatures, channels to the node's RPC port), answers
+    ``("ready", seconds)``, takes ``("go", t_go)`` (a ``time.monotonic()``
+    instant: the clock is system-wide) and answers with the job's result,
+    or ``("error", text)``."""
+    import traceback
+
+    while True:
+        msg = conn.recv()
+        if msg[0] == "stop":
+            return
+        try:
+            fn = {"calibrate": _sender_calibrate, "schedule": _sender_schedule}[msg[0]]
+            conn.send(asyncio.run(fn(conn, *msg[1:])))
+        except Exception:
+            conn.send(("error", traceback.format_exc()))
+
+
+async def _sender_channels(port: int) -> tuple:
+    """AB_CHANNELS channels to 127.0.0.1:port, each its own connection
+    (a local subchannel pool), connected; their stubs."""
+    import grpc
+
+    from at2_node_tpu_torch.proto.rpc import At2Stub
+
+    channels = [grpc.aio.insecure_channel(f"127.0.0.1:{port}", options=[("grpc.use_local_subchannel_pool", 1)])
+                for _ in range(AB_CHANNELS)]
+    await asyncio.gather(*(asyncio.wait_for(ch.channel_ready(), 30) for ch in channels))
+    return channels, [At2Stub(ch) for ch in channels]
+
+
+async def _sender_calibrate(conn, port: int, keys: list, recipients: list, seconds: float, seed: int) -> tuple:
+    """Closed loop: each key sends a unary ``SendAsset`` (sequence 1, 2,
+    ... to a seeded recipient, amount 1-20) as soon as its last one was
+    acknowledged, from ``t_go`` until ``seconds`` after it. Returns each
+    key's acknowledged (seq, recipient, amount) and the process's CPU
+    seconds over the window."""
+    import random
+
+    from at2_node_tpu_torch.crypto.keys import SignKeyPair
+    from at2_node_tpu_torch.proto import at2_pb2 as pb
+    from at2_node_tpu_torch.types import transfer_signing_bytes
+
+    kps = [SignKeyPair(k) for k in keys]
+    channels, stubs = await _sender_channels(port)
+    conn.send(("ready", 0.0))
+    t_go = conn.recv()[1]
+    acked: list = [[] for _ in kps]
+
+    async def client(c: int) -> None:
+        kp, stub, seq = kps[c], stubs[c % len(stubs)], 1
+        rng = random.Random(f"{seed}/{kp.public.hex()}")
+        await asyncio.sleep(max(0.0, t_go - time.monotonic()))
+        while time.monotonic() < t_go + seconds:
+            to, amount = recipients[rng.randrange(len(recipients))], rng.randint(1, 20)
+            await stub.SendAsset(pb.SendAssetRequest(
+                sender=kp.public, sequence=seq, recipient=to, amount=amount,
+                signature=kp.sign(transfer_signing_bytes(kp.public, seq, to, amount))))
+            acked[c].append((seq, to, amount))
+            seq += 1
+
+    await asyncio.sleep(max(0.0, t_go - time.monotonic()))
+    cpu0 = time.process_time()
+    try:
+        await asyncio.gather(*(client(c) for c in range(len(kps))))
+    finally:
+        for ch in channels:
+            await ch.close()
+    return "done", acked, time.process_time() - cpu0, time.monotonic()
+
+
+async def _sender_schedule(conn, port: int, job: dict) -> tuple:
+    """One node's share of an arm's schedule: every event (index, t,
+    sender key, seq, recipient, amount) is signed beforehand, then sent
+    as one unary ``SendAsset`` at ``t_go + t`` through
+    ``RetryPolicy(budget=job["budget"])`` with a seeded rng. Returns a
+    record an event: (index, the monotonic instant its first attempt was
+    issued, the instant its call ended, "ack" or the final status code's
+    name, every refusal as (instant, code name, retry_after_ms hint or
+    None), every attempt's start), and the process's CPU seconds from
+    ``t_go`` to its end."""
+    import random
+
+    import grpc
+
+    from at2_node_tpu_torch.client import RetryPolicy
+    from at2_node_tpu_torch.crypto.keys import SignKeyPair
+    from at2_node_tpu_torch.node.overload import parse_retry_after_ms
+    from at2_node_tpu_torch.proto import at2_pb2 as pb
+    from at2_node_tpu_torch.types import transfer_signing_bytes
+
+    t0 = time.perf_counter()
+    kps = {k: SignKeyPair(k) for k in {ev[2] for ev in job["events"]}}
+    reqs = []
+    for idx, t, key, seq, to, amount in job["events"]:
+        kp = kps[key]
+        reqs.append((idx, t, pb.SendAssetRequest(
+            sender=kp.public, sequence=seq, recipient=to, amount=amount,
+            signature=kp.sign(transfer_signing_bytes(kp.public, seq, to, amount)))))
+    channels, stubs = await _sender_channels(port)
+    conn.send(("ready", time.perf_counter() - t0))
+    t_go = conn.recv()[1]
+    policy = RetryPolicy(budget=job["budget"], rng=random.Random(job["rng_seed"]).random)
+    out: list = []
+
+    async def one(k: int, idx: int, t: float, req) -> None:
+        stub, refusals, starts = stubs[k % len(stubs)], [], []
+        await asyncio.sleep(max(0.0, t_go + t - time.monotonic()))
+        t_issue = time.monotonic()
+
+        async def attempt():
+            starts.append(time.monotonic())
+            try:
+                return await stub.SendAsset(req)
+            except grpc.aio.AioRpcError as exc:
+                refusals.append((time.monotonic(), exc.code().name, parse_retry_after_ms(exc.details())))
+                raise
+
+        try:
+            await policy.run(attempt)
+            outcome = "ack"
+        except grpc.aio.AioRpcError as exc:
+            outcome = exc.code().name
+        out.append((idx, t_issue, time.monotonic(), outcome, refusals, starts))
+
+    cpu0 = time.process_time()
+    try:
+        await asyncio.gather(*(one(k, *r) for k, r in enumerate(reqs)))
+    finally:
+        for ch in channels:
+            await ch.close()
+    return "done", out, time.process_time() - cpu0
+
+
+class ABSenders:
+    """``n`` spawned ``ab_sender_main`` processes, sender i sending to node
+    i of whichever net a job names; they live through phase 14 and are
+    stopped by ``close``."""
+
+    def __init__(self, n: int = NET_NODES) -> None:
+        import multiprocessing
+
+        ctx = multiprocessing.get_context("spawn")
+        self.conns, self.procs = [], []
+        for _ in range(n):
+            mine, theirs = ctx.Pipe()
+            proc = ctx.Process(target=ab_sender_main, args=(theirs,), daemon=True)
+            proc.start()
+            theirs.close()
+            self.conns.append(mine)
+            self.procs.append(proc)
+
+    def _recv(self, i: int, timeout: float):
+        check(self.conns[i].poll(timeout), f"sender {i} answered nothing in {timeout:.0f} s")
+        msg = self.conns[i].recv()
+        check(msg[0] != "error", f"sender {i} failed: {msg[-1]}")
+        return msg
+
+    def run(self, jobs: list, timeout: float = 600.0) -> tuple:
+        """Job i to sender i; once every sender is ready, one ``t_go``
+        AB_LEAD_S ahead for all; (t_go, the ready messages, the results)."""
+        for conn, job in zip(self.conns, jobs):
+            conn.send(job)
+        ready = [self._recv(i, timeout) for i in range(len(jobs))]
+        t_go = time.monotonic() + AB_LEAD_S
+        for conn in self.conns[:len(jobs)]:
+            conn.send(("go", t_go))
+        return t_go, ready, [self._recv(i, timeout) for i in range(len(jobs))]
+
+    def close(self) -> None:
+        for conn, proc in zip(self.conns, self.procs):
+            try:
+                conn.send(("stop",))
+            except OSError:
+                pass
+            proc.join(timeout=10)
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+
+
+def ab_n_tx(c_tx: float, capacity_frac: float, duration: float) -> int:
+    """The reference bench sizes its modeled verifier from the schedule
+    (capacity = capacity_frac x the offered rate); served, the capacity is
+    measured, so the schedule is sized from it: ``duration`` seconds of
+    ``c_tx`` over ``capacity_frac``."""
+    return int(round(duration * c_tx / capacity_frac))
+
+
+def ab_schedule(seed: int, workload: str, nodes: int, n_clients: int, crowd: int, n_tx: int,
+                duration: float) -> list:
+    """The reference cell's schedule (``run_overload_cell``): its seed
+    derivation, the port's copy of its generator."""
+    import random
+
+    from at2_node_tpu_torch.sim.scenarios import _seed_int, flash_crowd_workload, hot_account_workload
+
+    rng = random.Random(_seed_int("overload", seed, workload, n_clients, crowd, n_tx))
+    if workload == "flash_crowd":
+        return flash_crowd_workload(rng, nodes=nodes, n_clients=n_clients, n_tx=n_tx, duration=duration,
+                                    crowd=crowd)
+    check(workload == "hot_account", f"no overload variant for workload {workload!r}")
+    return hot_account_workload(rng, nodes=nodes, n_clients=n_clients, n_tx=n_tx, duration=duration)
+
+
+def ab_steady_ids(workload: str, n_clients: int, crowd: int) -> list:
+    """The reference cell's steady tier: the first n_clients - crowd
+    clients under a flash crowd, every client but the hot one (0)."""
+    return list(range(max(1, n_clients - crowd))) if workload == "flash_crowd" else list(range(1, n_clients))
+
+
+def ab_table(ov, trace_cap: int) -> str:
+    """An arm's TOML tables: ``[observability]`` with the trace and
+    recorder caps, and, given an ``OverloadConfig``, ``[overload]`` with
+    every key of it written out."""
+    import dataclasses
+
+    def value(v) -> str:
+        return ("true" if v else "false") if isinstance(v, bool) else repr(v)
+
+    text = f"[observability]\ntrace_cap = {trace_cap}\ntrace_done_cap = {trace_cap}\nrecorder_cap = {trace_cap}\n"
+    if ov is not None:
+        text += "\n[overload]\n" + "".join(f"{f.name} = {value(getattr(ov, f.name))}\n"
+                                           for f in dataclasses.fields(ov))
+    return text
+
+
+def ab_expected(acked: dict, offered: dict) -> tuple:
+    """The expected transfers: a sender's acknowledged sequences up to its
+    first sequence that was not acknowledged (``acked`` and ``offered``:
+    sender -> set of sequences). Returns {sender: its last expected
+    sequence} and {sender: the sequences acknowledged behind a gap}
+    (they park at the ledger's sequence gate)."""
+    last, parked = {}, {}
+    for sender, seqs in offered.items():
+        got = acked.get(sender, set())
+        s = 0
+        while s + 1 in got:
+            s += 1
+        last[sender] = s
+        behind = sorted(q for q in got if q > s)
+        if behind:
+            parked[sender] = behind
+    return last, parked
+
+
+def ab_replay(order: list, transfers: dict, expected_last: dict, initial: int) -> tuple:
+    """A node's ledger under the ledger's own rule (``ledger/account.py``),
+    in the node's commit order. ``order``: the (sender, seq) of each
+    ``committed`` stamp, in the order the node's completed-trace ring took
+    them (its commit order); ``transfers``: every scheduled (sender, seq)
+    -> (recipient, amount); ``expected_last``: each sender's last
+    expected sequence. An expected transfer the node did not commit
+    failed its debit: its sequence is consumed and no money moves, which
+    the rule allows only when its amount is above the sender's balance
+    right after its predecessor (later, only a credit can raise it).
+    Returns ({sender: [last_sequence, balance]}, the transfers that
+    failed their debit, the faults)."""
+    state: dict = {}  # sender -> [last sequence, balance, balance right after its last debit]
+    overdrawn, faults = [], []
+
+    def acct(key) -> list:
+        return state.setdefault(key, [0, initial, initial])
+
+    def failed_before(sender, seq: int) -> None:
+        s = acct(sender)
+        while s[0] + 1 < seq and s[0] < expected_last.get(sender, 0):
+            to, amount = transfers[(sender, s[0] + 1)]
+            if to == sender or amount <= s[2]:
+                faults.append(f"{sender.hex()[:12]}/{s[0] + 1}: expected and affordable ({amount} against "
+                              f"{s[2]}), not committed")
+            else:
+                overdrawn.append((sender, s[0] + 1))
+            s[0] += 1
+
+    for sender, seq in order:
+        if seq > expected_last.get(sender, 0):
+            faults.append(f"{sender.hex()[:12]}/{seq}: committed, not an expected transfer")
+            continue
+        failed_before(sender, seq)
+        s = acct(sender)
+        if s[0] + 1 != seq:
+            faults.append(f"{sender.hex()[:12]}/{seq}: committed after sequence {s[0]}")
+            continue
+        to, amount = transfers[(sender, seq)]
+        s[0] = seq
+        if to != sender:  # a transfer to itself moves nothing (Accounts._transfer)
+            if amount > s[1]:
+                faults.append(f"{sender.hex()[:12]}/{seq}: committed {amount} against a balance of {s[1]}")
+                continue
+            s[1] -= amount
+            acct(to)[1] += amount
+        s[2] = s[1]
+    for sender, last in expected_last.items():
+        failed_before(sender, last + 1)
+    return {k: s[:2] for k, s in state.items()}, overdrawn, faults
+
+
+def ab_latencies(traces: list, offered_at: dict, steady: set) -> tuple:
+    """The reference cell's client-perceived latency
+    (``run_overload_cell``): from a transfer's offered time to the latest
+    of its ``committed`` stamps on the nodes' ``/tracez``, retry hold-offs
+    included; here only over transfers stamped on every node. Returns the
+    steady tier's and all transfers' latencies (s, ascending) and how many
+    offered transfers were stamped on how many nodes."""
+    commit_at: dict = {}
+    for i, dump in enumerate(traces):
+        for rec in dump["completed"] + dump["live"]:
+            for stage, mono, _ in rec["stages"]:
+                if stage == "committed":
+                    commit_at.setdefault((rec["sender"], rec["seq"]), {})[i] = mono
+    steady_lats, all_lats, stamped_on = [], [], Counter()
+    for key, stamps in commit_at.items():
+        t0 = offered_at.get(key)
+        if t0 is None:
+            continue
+        stamped_on[len(stamps)] += 1
+        if len(stamps) < len(traces):
+            continue
+        lat = max(stamps.values()) - t0
+        all_lats.append(lat)
+        if key[0] in steady:
+            steady_lats.append(lat)
+    return sorted(steady_lats), sorted(all_lats), dict(stamped_on)
+
+
+AB_SEGMENTS = ("offered_to_ingress", "ingress_to_admitted", "admitted_to_delivered", "delivered_to_last_commit")
+
+
+def ab_stages(traces: list, offered_at: dict, keys: set) -> dict:
+    """Where a transfer's offered-to-commit time went, over the transfers
+    of ``keys`` stamped committed on every node: offered to the ingress
+    stamp of the node that admitted it (the client's issue, the RPC
+    queue, retry hold-offs), ingress to admitted (admission's verify),
+    admitted to delivered there (the broadcast), delivered there to the
+    last node's commit. {segment: (p50 ms, p99 ms)}."""
+    from at2_node_tpu_torch.tools.trace_collect import _pctl
+
+    origin, commits = {}, {}
+    for i, dump in enumerate(traces):
+        for rec in dump["completed"]:
+            if rec["terminal"] != "committed":
+                continue
+            key = (rec["sender"], rec["seq"])
+            stamps = {stage: mono for stage, mono, _ in rec["stages"]}
+            commits.setdefault(key, []).append(stamps["committed"])
+            if rec["origin"]:
+                origin[key] = stamps
+    seg: dict = {name: [] for name in AB_SEGMENTS}
+    for key, st in origin.items():
+        if key not in keys or len(commits[key]) < len(traces) or not {"ingress", "admitted", "delivered"} <= set(st):
+            continue
+        for name, a, b in zip(AB_SEGMENTS, (offered_at[key], st["ingress"], st["admitted"], st["delivered"]),
+                              (st["ingress"], st["admitted"], st["delivered"], max(commits[key]))):
+            seg[name].append(b - a)
+    return {name: (round(1e3 * _pctl(sorted(v), 0.50), 3), round(1e3 * _pctl(sorted(v), 0.99), 3))
+            for name, v in seg.items()}
+
+
+async def ab_short(clients: list, pubs: list, expected_last: dict) -> list:
+    """The (node, client) pairs whose ``GetLastSequence`` is not the
+    client's last expected sequence (``clients[i]`` talks to node i)."""
+    seqs = [await asyncio.gather(*(cl.get_last_sequence(p) for p in pubs)) for cl in clients]
+    return [(i, c) for i, row in enumerate(seqs) for c, p in enumerate(pubs) if row[c] != expected_last.get(p.hex(), 0)]
+
+
+def ab_fairness(frontier: dict, offered_by_client: list, steady_ids: list, pubs: list) -> float:
+    """The reference cell's fairness: Jain's index over the steady
+    senders' committed/offered ratios, a sender's committed count being
+    its last sequence on node 0."""
+    from at2_node_tpu_torch.sim.scenarios import jain_index
+
+    ratios = [float(frontier.get(pubs[i], 0)) / offered_by_client[i] for i in steady_ids if offered_by_client[i] > 0]
+    return round(jain_index(ratios), 6)
+
+
+def level0_after(readings: list, t_from: float):
+    """From a node's /healthz readings: seconds after ``t_from`` to the
+    first level-0 reading after the last one above 0 (0.0 if none was
+    above 0 after it; None if the last reading is above 0)."""
+    after = [h for h in readings if h[0] >= t_from and h[1] is not None]
+    high = [k for k, h in enumerate(after) if h[3]]
+    if not high:
+        return 0.0
+    return after[high[-1] + 1][0] - t_from if high[-1] + 1 < len(after) else None
+
+
+def ab_net(kind: str, workdir: str, ov, trace_cap: int) -> ServerNet:
+    """An arm's (or the calibration's) four ``server run`` nodes at the
+    reference cell's f = 1 thresholds: ``ab_table``'s tables on every
+    node; ``trace_cap`` None: no tables."""
+    os.makedirs(workdir)
+    return ServerNet(kind, workdir, top=AB_THRESHOLDS,
+                     tables=None if trace_cap is None else (lambda i: ab_table(ov, trace_cap)))
+
+
+def start_pair(nets: list, label: str) -> float:
+    """Start nets side by side in threads (their ports from one
+    ``free_ports`` call); seconds until all were up and meshed. A port
+    that another socket took between ``free_ports`` and its node's bind
+    makes that node exit: then every node stops and the nets start once
+    more on fresh ports."""
+    t0 = time.perf_counter()
+    for attempt in (0, 1):
+        ports = free_ports(2 * sum(net.n for net in nets))
+        try:
+            with ThreadPoolExecutor(max_workers=len(nets)) as pool:
+                list(pool.map(lambda k: nets[k].start(180.0, ports[2 * NET_NODES * k:2 * NET_NODES * (k + 1)]),
+                              range(len(nets))))
+            break
+        except RuntimeError as exc:
+            if attempt or "Address already in use" not in str(exc):
+                raise
+            log(f"{label}: a port was taken before its node bound it ({exc}); starting again on fresh ports")
+            for net in nets:
+                net.stop()
+                net.procs, net.logs, net.tomls = [], [], []
+    up = time.perf_counter() - t0
+    log(f"{label}: {len(nets)} nets of {NET_NODES} `server run` processes up and meshed in {up:.1f} s")
+    return up
+
+
+async def calibrate(net: ServerNet, senders: ABSenders, keys: list, seconds: float, seed: int,
+                    label: str) -> dict:
+    """Closed-loop unary ``SendAsset`` from ``keys`` (key c through sender
+    and node c mod n) for ``seconds``; every acknowledged transfer must
+    commit on every node and equal the python-int replay. The committed
+    rate (acknowledged transfers over the go instant to the last node's
+    last commit), the signatures the four verifiers checked a committed
+    transfer, the verifier queue peak and queue wait, and each sender process's
+    CPU share."""
+    n = net.n
+    pubs = [kp.public for kp in keys]
+    before = [net.statusz(i) for i in range(n)]
+    jobs = [("calibrate", net.rpc_ports[i], [kp.private_bytes for kp in keys[i::n]], pubs, seconds, seed)
+            for i in range(n)]
+    t_go, _, done = senders.run(jobs)
+    per_key = [None] * len(keys)
+    for i, (_, acked, _, _) in enumerate(done):
+        per_key[i::n] = acked
+    n_acked = sum(len(a) for a in per_key)
+    t_last = wait_committed(net, [b["stats"]["committed"] + n_acked for b in before], 120.0)
+    after = [net.statusz(i) for i in range(n)]
+    await check_replay(net, keys, per_key)
+    window = t_last - t_go
+    sigs = sum(a["stats"]["verifier_signatures"] - b["stats"]["verifier_signatures"] for a, b in zip(after, before))
+    qw = [(a["verifier_stages"].get("queue_wait", {}), b["verifier_stages"].get("queue_wait", {}))
+          for a, b in zip(after, before)]
+    d_count = sum(a.get("count", 0) - b.get("count", 0) for a, b in qw)
+    d_sum = sum(a.get("sum_ms", 0.0) - b.get("sum_ms", 0.0) for a, b in qw)
+    out = {
+        "tx_per_s": n_acked / window, "transfers": n_acked, "window_s": window,
+        "sigs_per_tx": sigs / n_acked if n_acked else 0.0, "sigs_per_s": sigs / window,
+        "queue_peak": [a["stats"].get("verifier_queue_peak") for a in after],
+        "queue_wait_p50_ms": [a.get("p50_ms") for a, _ in qw],
+        "queue_wait_mean_ms": d_sum / d_count if d_count else None,
+        "sender_cpu_share": [cpu / (t_end - t_go) for _, _, cpu, t_end in done],
+        "launches": [a["build"]["kernel_launches"] - b["build"]["kernel_launches"] for a, b in zip(after, before)],
+    }
+    log(f"{label}: {len(keys)} keys closed-loop unary SendAsset for {seconds:.1f} s: {n_acked} transfers "
+        f"committed on all {n} nodes in {window:.3f} s = {out['tx_per_s']:,.1f} tx/s (equal to the python-int "
+        f"replay); {out['sigs_per_tx']:.2f} signatures verified a committed transfer over the {n} nodes "
+        f"(the reference's _OVERLOAD_SIGS_PER_TX: 33), {out['sigs_per_s']:,.0f} sigs/s; verifier queue peak "
+        f"{out['queue_peak']}, queue wait p50 since start {out['queue_wait_p50_ms']} ms, mean over the window "
+        f"{out['queue_wait_mean_ms'] if d_count else 'n/a'} ms; sender CPU "
+        f"{[round(s, 3) for s in out['sender_cpu_share']]} of a core each; K1 launches {out['launches']}")
+    return out
+
+
+async def ab_arm(net: ServerNet, senders: ABSenders, plan: dict, controlled: bool, kind: str,
+                 failures: list) -> dict:
+    """One arm on its started net: the steady tier registers, the schedule
+    runs in real time through the senders, every node reaches each
+    sender's expected sequence; then the ledgers, traces, recorders and
+    counters are read (net still up) into the arm's row, and what fails
+    gates (a)-(e) is appended to ``failures``."""
+    from at2_node_tpu_torch.client import Client
+    from at2_node_tpu_torch.ledger.account import INITIAL_BALANCE
+    from at2_node_tpu_torch.tools.trace_collect import _pctl
+
+    n, workload, arm = net.n, plan["workload"], "controlled" if controlled else "uncontrolled"
+    label = f"overload A/B node net (14, {workload}, {arm})"
+    keys, events, steady_ids, ov = plan["keys"], plan["events"], plan["steady_ids"], plan["table"]
+    pubs = [kp.public for kp in keys]
+    hexes = [p.hex() for p in pubs]
+
+    def gate(cond: bool, what: str) -> None:
+        if not cond:
+            failures.append(f"{label}: {what}")
+
+    clients = [Client(f"http://127.0.0.1:{p}") for p in net.rpc_ports]
+    try:
+        t_reg = time.monotonic()
+        size = await register_keys(net, clients, [keys[c] for c in steady_ids], steady_ids)
+        t_reg = time.monotonic() - t_reg
+        status0 = [net.statusz(i) for i in range(n)]
+        drops0 = [drop_counters(net.metrics(i)) for i in range(n)]
+        jobs = [("schedule", net.rpc_ports[i], {
+            "events": [(k, t, keys[a["client"]].private_bytes, a["seq"], pubs[a["to"]], a["amount"])
+                       for k, (t, _, a) in enumerate(events) if a["node"] == i],
+            "budget": AB_RETRY_BUDGET, "rng_seed": f"{plan['seed']}/{workload}/{arm}/{i}"}) for i in range(n)]
+        with Poller(net) as poll:
+            t_go, ready, done = senders.run(jobs)
+            t_sent = time.monotonic()
+            records = [r for _, recs, _ in done for r in recs]
+            offered = {}
+            for _, _, a in events:
+                offered.setdefault(hexes[a["client"]], set()).add(a["seq"])
+            acked: dict = {}
+            for idx, _, _, outcome, _, _ in records:
+                a = events[idx][2]
+                if outcome == "ack":
+                    acked.setdefault(hexes[a["client"]], set()).add(a["seq"])
+            expected_last, parked = ab_expected(acked, offered)
+            # every node reaches each sender's last expected sequence (an
+            # overdrawn debit consumes its sequence too), with nothing left
+            # undelivered: once every node's committed count (/healthz) has
+            # held still for AB_QUIET_S, the sequences are read
+            t_end = time.monotonic() + AB_SETTLE_S
+            counts, t_settled, t_checked, short = None, time.monotonic(), 0.0, []
+            while True:
+                now_counts = [net.committed(i) for i in range(n)]
+                if now_counts != counts:
+                    counts, t_settled = now_counts, time.monotonic()
+                elif time.monotonic() - max(t_settled, t_checked) >= AB_QUIET_S:
+                    short = await ab_short(clients, pubs, expected_last)
+                    if not short and not any(net.stats(i)["slots_undelivered"] for i in range(n)):
+                        break
+                    t_checked = time.monotonic()
+                if time.monotonic() > t_end:
+                    gate(False, f"{len(short)} (node, sender) pairs short of the expected sequence "
+                         f"{AB_SETTLE_S:.0f} s after the schedule, e.g. {short[:4]}")
+                    break
+                await asyncio.sleep(0.1)
+        t_read = time.monotonic()
+        seqs = [await asyncio.gather(*(cl.get_last_sequence(p) for p in pubs)) for cl in clients]
+        balances = [await asyncio.gather(*(cl.get_balance(p) for p in pubs)) for cl in clients]
+    finally:
+        for cl in clients:
+            await cl.close()
+    with ThreadPoolExecutor(max_workers=n) as pool:
+        status = list(pool.map(net.statusz, range(n)))
+        metrics = list(pool.map(net.metrics, range(n)))
+        debugz = list(pool.map(lambda i: json.loads(net.get(i, "/debugz")), range(n)))
+        traces = list(pool.map(lambda i: json.loads(net.get(i, f"/tracez?limit={plan['trace_cap']}")), range(n)))
+    collect_s = time.monotonic() - t_read
+
+    # the schedule as sent
+    t_offer = {k: t_go + t for k, (t, _, _) in enumerate(events)}
+    late = sorted(t_issue - t_offer[idx] for idx, t_issue, *_ in records)
+    lateness_p99 = _pctl(late, 0.99)
+    refusals = [(idx, r) for idx, _, _, _, rs, _ in records for r in rs]
+    final = Counter(outcome for _, _, _, outcome, _, _ in records)
+    retried = {idx for idx, _, _, outcome, rs, _ in records if rs and outcome == "ack"}
+    # RetryPolicy honours the typed hint: each retry starts no sooner after
+    # the refusal it follows than the hint (capped at the policy's max_ms)
+    # times the policy's least jitter factor
+    from at2_node_tpu_torch.client import RetryPolicy
+
+    pol = RetryPolicy()
+    floor = 1.0 - pol.jitter / 2.0
+    n_retries = sum(len(starts) - 1 for *_, starts in records)
+    early = [(idx, round(b - r[0], 4), r[2]) for idx, _, _, _, rs, starts in records
+             for r, b in zip(rs, starts[1:]) if r[2] is not None and b - r[0] < floor * min(pol.max_ms, r[2]) / 1e3]
+    n_parked = sum(len(v) for v in parked.values())
+    n_expected = sum(expected_last.values())
+
+    # (a) every expected transfer commits on every node, by the ledger's rule
+    transfers = {(pubs[a["client"]], a["seq"]): (pubs[a["to"]], a["amount"]) for _, _, a in events}
+    last_by_pub = {pubs[c]: expected_last.get(hexes[c], 0) for c in range(len(pubs))}
+    commit_orders, overdrawn, ledgers_ok = [], [], []
+    for i in range(n):
+        order = [(bytes.fromhex(r["sender"]), r["seq"]) for r in traces[i]["completed"] if r["terminal"] == "committed"]
+        commit_orders.append(order)
+        replay, over, faults = ab_replay(order, transfers, last_by_pub, INITIAL_BALANCE)
+        overdrawn.append(len(over))
+        gate(not faults, f"node {i}: {len(faults)} transfers against the ledger's rule, e.g. {faults[:3]}")
+        wrong = [(p.hex()[:12], [seqs[i][c], balances[i][c]], replay.get(p, [0, INITIAL_BALANCE]))
+                 for c, p in enumerate(pubs) if [seqs[i][c], balances[i][c]] != replay.get(p, [0, INITIAL_BALANCE])]
+        gate(not wrong, f"node {i}: {len(wrong)} accounts differ from the replay in its commit order "
+             f"(account, the node's [sequence, balance], the replay's), e.g. {wrong[:3]}")
+        ledgers_ok.append(not faults and not wrong)
+        committed_i = status[i]["stats"]["committed"] - status0[i]["stats"]["committed"]
+        gate(committed_i == len(order), f"node {i}: committed {committed_i}, its /tracez stamped {len(order)}")
+        gate(status[i]["stats"]["slots_undelivered"] == 0,
+             f"node {i}: slots_undelivered {status[i]['stats']['slots_undelivered']}")
+        drops = drop_counters(metrics[i])
+        gate(drops == drops0[i], f"node {i}: drop counters moved: {drops0[i]} -> {drops}")
+
+    # the reference's cell readings
+    steady = {hexes[c] for c in steady_ids}
+    offered_at = {(hexes[a["client"]], a["seq"]): t_offer[k] for k, (_, _, a) in enumerate(events)}
+    steady_lats, all_lats, stamped_on = ab_latencies(traces, offered_at, steady)
+    stages = ab_stages(traces, offered_at, {k for k in offered_at if k[0] in steady})
+    offered_by_client = [0] * len(keys)
+    for _, _, a in events:
+        offered_by_client[a["client"]] += 1
+    fairness = ab_fairness({pubs[c]: seqs[0][c] for c in range(len(pubs))}, offered_by_client, steady_ids, pubs)
+    shed = [int(m.get("at2_overload_shed_entries_total", 0) + m.get("at2_overload_shed_distilled_total", 0))
+            for m in metrics]
+    shed_req = [int(m.get("at2_overload_shed_requests_total", 0)) for m in metrics]
+    shed_events = [sum(1 for ev in d["recorder"]["events"] if ev[1] in ("overload_shed", "overload_shed_distilled"))
+                   for d in debugz]
+    steady_p99 = round(1e3 * _pctl(steady_lats, 0.99), 3)
+    slo_ms = plan["latency_slo_ms"]
+    launches = [status[i]["build"]["kernel_launches"] - status0[i]["build"]["kernel_launches"] for i in range(n)]
+    t_sched_end = t_go + max(t for t, _, _ in events)
+    nodes = []
+    for i in range(n):
+        health = [h for h in poll.health(i) if h[1] is not None]
+        top, led = dominant_signal(poll.pressure[i])
+        qw = status[i].get("verifier_stages", {}).get("queue_wait", {})
+        nodes.append({
+            "peak_level": max((h[3] or 0 for h in health), default=0),
+            "peak_pressure": max((h[4] or 0.0 for h in health), default=0.0),
+            "peak_signal": top, "signal_led": led,
+            "burn_end": (poll.pressure[i][-1][1].get("signals") or {}).get("burn") if poll.pressure[i] else None,
+            "level0_s": level0_after(health, t_sched_end),
+            "queue_peak": status[i]["stats"].get("verifier_queue_peak"),
+            "queue_wait_p50_ms": qw.get("p50_ms"), "queue_wait_p99_ms": qw.get("p99_ms"),
+        })
+    peak = max(range(n), key=lambda i: nodes[i]["peak_pressure"])
+    level0 = [p["level0_s"] for p in nodes]
+    row = {
+        "workload": workload, "arm": arm, "seed": plan["seed"], "nodes": n, "f": 1,
+        "n_clients": len(keys), "crowd": plan["crowd"] if workload == "flash_crowd" else 1,
+        "capacity_sigs_per_sec": plan["cap"], "capacity_sigs_per_sec_fleet": plan["cap"] * n,
+        "offered": sum(offered_by_client), "offered_steady": sum(offered_by_client[c] for c in steady_ids),
+        "committed": min(len(o) for o in commit_orders), "committed_steady": len(steady_lats),
+        "shed": sum(shed), "shed_events": sum(shed_events),
+        "steady_p50_ms": round(1e3 * _pctl(steady_lats, 0.50), 3), "steady_p99_ms": steady_p99,
+        "all_p99_ms": round(1e3 * _pctl(all_lats, 0.99), 3),
+        "fairness": fairness, "latency_slo_ms": slo_ms, "fairness_floor": AB_FAIRNESS_FLOOR,
+        "slo_ok": bool(steady_lats) and steady_p99 <= slo_ms, "fairness_ok": fairness >= AB_FAIRNESS_FLOOR,
+        "card": plan["card"], "c_tx": plan["c_tx"], "sigs_per_tx": plan["sigs_per_tx"],
+        "kernel_launches": launches,
+        "peak_level": nodes[peak]["peak_level"], "peak_signal": nodes[peak]["peak_signal"],
+        "burn_end": max((p["burn_end"] for p in nodes if p["burn_end"] is not None), default=None),
+        "level0_s": None if None in level0 else max(level0),
+        "n_tx": len(events), "expected": n_expected, "parked": n_parked, "overdrawn": overdrawn,
+        "acked": final["ack"], "refused": sum(v for k, v in final.items() if k != "ack"),
+        "refusals": len(refusals), "retried_then_acked": len(retried),
+        "shed_requests": shed_req, "stamped_on": stamped_on,
+        "lateness_p50_s": _pctl(late, 0.50), "lateness_p99_s": lateness_p99, "lateness_max_s": late[-1],
+        "sender_cpu_share": [cpu / (t_sent - t_go) for _, _, cpu in done],
+        "sign_s": [r[1] for r in ready], "arm_s": t_settled - t_go, "nodes_detail": nodes,
+        "directory_size": size, "steady_stages_ms": stages, "register_s": t_reg, "collect_s": collect_s,
+    }
+
+    # a failed call is a shed (RESOURCE_EXHAUSTED) or a call the node's
+    # gRPC server never handed to a handler, cancelled after grpc's
+    # unrequested-call limit (CANCELLED); nothing else may fail
+    waits: dict = {}
+    for _, _, _, _, rs, starts in records:
+        for r, t_start in zip(rs, starts):
+            waits.setdefault(r[1], []).append(r[0] - t_start)
+    cancelled = sorted(waits.get("CANCELLED", []))
+    row["cancelled"] = len(cancelled)
+    gate(set(waits) <= {"RESOURCE_EXHAUSTED", "CANCELLED"},
+         f"calls failed otherwise than shed or cancelled unrequested: {sorted(set(waits))}")
+    gate(not cancelled or cancelled[0] >= AB_UNREQUESTED_S,
+         f"{sum(1 for w in cancelled if w < AB_UNREQUESTED_S)} calls CANCELLED sooner than {AB_UNREQUESTED_S} s "
+         f"after they went out, e.g. {[round(w, 3) for w in cancelled[:4]]}")
+    # (b) the uncontrolled arm never sheds
+    if not controlled:
+        n_shed = len(waits.get("RESOURCE_EXHAUSTED", []))
+        gate(not n_shed and sum(shed_req) == 0 and row["shed"] == 0,
+             f"{n_shed} refusals RESOURCE_EXHAUSTED, shed requests {shed_req}, entries {shed} without an "
+             f"[overload] table")
+        gate(all(not h[4] for i in range(n) for h in poll.health(i) if h[1] is not None)
+             and all(s["pressure"]["pressure"] == 0 for s in status),
+             "the controller's pressure moved without an [overload] table")
+    # (c) the controlled flash crowd runs the shed path (the card's verifier
+    # queue is what the controller reads; the host kind has none)
+    codes = Counter(r[1] for _, r in refusals)
+    bad_hints = sorted({r[2] for _, r in refusals if r[2] is None or not ov.retry_after_ms <= r[2] <=
+                        ov.retry_after_max_ms}, key=str) if ov is not None else []
+    everywhere = set.intersection(*({(r["sender"], r["seq"]) for r in d["completed"] if r["terminal"] == "committed"}
+                                    for d in traces))
+    retried_committed = [idx for idx in retried
+                         if (hexes[events[idx][2]["client"]], events[idx][2]["seq"]) in everywhere]
+    row["retried_then_committed"] = len(retried_committed)
+    row["retries"], row["retries_before_hint"] = n_retries, len(early)
+    # (c)'s third clause, a retried transfer committing, holds on the card
+    # only sometimes (PERF.md section 6): a tracked strict check, printed
+    # and kept in the row, not gated; once it holds in every run, it is to
+    # be gated again
+    row["strict_c3_held"] = bool(retried_committed) if controlled and workload == "flash_crowd" else None
+    if controlled and workload == "flash_crowd" and kind == "cuda":
+        gate(sum(shed_req) >= 1, "no node shed a request: the shed path did not run")
+        gate(set(codes) <= {"RESOURCE_EXHAUSTED"}, f"refusals other than RESOURCE_EXHAUSTED: {dict(codes)}")
+        gate(not bad_hints, f"refusal hints outside [{ov.retry_after_ms}, {ov.retry_after_max_ms}] ms: {bad_hints[:8]}")
+        gate(n_retries > 0 and not early, f"RetryPolicy retried {n_retries} refusals, {len(early)} of them "
+             f"sooner than {floor} x the hint, e.g. {early[:4]}")
+    # (d) K1 runs on every node
+    if kind == "cuda":
+        gate(all(x > 0 for x in launches), f"K1 launches {launches}: not on every node")
+    # (e) the senders keep to the schedule
+    gate(lateness_p99 < AB_LATENESS_P99_S, f"send lateness p99 {lateness_p99:.3f} s (limit {AB_LATENESS_P99_S} s)")
+
+    log(f"{label}: {len(events)} transfers offered over {max(t for t, _, _ in events):.2f} s "
+        f"({row['offered_steady']} from the {len(steady_ids)} registered steady clients; directory_size {size}) "
+        f"as unary SendAsset through RetryPolicy(budget={AB_RETRY_BUDGET}) from {n} sender processes (signing "
+        f"{max(row['sign_s']):.2f} s beforehand); send lateness p50 {1e3 * row['lateness_p50_s']:.1f} ms, p99 "
+        f"{1e3 * lateness_p99:.1f} ms, max {1e3 * row['lateness_max_s']:.1f} ms; sender CPU "
+        f"{[round(s, 3) for s in row['sender_cpu_share']]} of a core each")
+    log(f"{label}: acknowledged {final['ack']}, finally refused {row['refused']} ({dict(final)}); refusals "
+        f"{len(refusals)} ({dict(codes)}; seconds from the attempt, min / p50 / max: "
+        f"{ {c: [round(_pctl(sorted(w), q), 3) for q in (0.0, 0.5, 1.0)] for c, w in waits.items()} }), "
+        f"hints {sorted(Counter(r[2] for _, r in refusals).items(), key=str)[:6]}; "
+        f"RetryPolicy retries {n_retries} ({len(early)} sooner than {floor} x the hint); retried then "
+        f"acknowledged {len(retried)}, of them committed on every node {len(retried_committed)}; "
+        f"expected {n_expected}, acknowledged behind a refused sequence (parked) {n_parked} from "
+        f"{len(parked)} senders; debits failed for lack of balance a node {overdrawn}; ledgers equal to the "
+        f"replay in each node's own commit order: {ledgers_ok}; arm {row['arm_s']:.1f} s from the first offer to the last "
+        f"commit (registration {t_reg:.1f} s before it, the readings {collect_s:.1f} s after)")
+    log(f"{label}: steady tier offered-to-commit (the latest of the {n} nodes' /tracez stamps, over "
+        f"{len(steady_lats)} transfers stamped on all {n}; by nodes stamped {stamped_on}) p50 "
+        f"{row['steady_p50_ms']:.1f} ms, p99 {steady_p99:.1f} ms, all transfers p99 {row['all_p99_ms']:.1f} ms; "
+        f"latency_slo_ms {slo_ms:.0f}: slo_ok {row['slo_ok']}; fairness {fairness:.4f} (floor "
+        f"{AB_FAIRNESS_FLOOR}): fairness_ok {row['fairness_ok']}; committed (fewest of a node) {row['committed']}; "
+        f"the steady tier's time by segment (p50, p99 ms; the admitting node's stamps): {stages}")
+    if row["strict_c3_held"] is not None:
+        log(f"{label}: strict check (c) 3 (a transfer retried by RetryPolicy, then committed on every node): "
+            f"{'held' if row['strict_c3_held'] else 'MISSED'} ({len(retried_committed)} transfers; a known miss "
+            f"on the card, open in ROADMAP section 3: printed, not gated)")
+    for i, p in enumerate(nodes):
+        log(f"{label} node {i}: overload_shed_requests {shed_req[i]}, shed entries {shed[i]}, recorder shed "
+            f"events {shed_events[i]}; peak level {p['peak_level']}, peak pressure {p['peak_pressure']}, the "
+            f"signal at the peak {p['peak_signal']} (readings each signal led {p['signal_led']}); burn at the "
+            f"end {p['burn_end']}; level 0 {seconds_or_never(p['level0_s'])} after the schedule's last offer; "
+            f"verifier queue peak {p['queue_peak']}, queue wait p50 {p['queue_wait_p50_ms']} ms p99 "
+            f"{p['queue_wait_p99_ms']} ms; K1 launches {launches[i]}")
+    return row
+
+
+async def overload_ab_path(seed: int, card_line: str, kind: str = "cuda", c_tx: float | None = None,
+                           n_clients: int = AB_CLIENTS, crowd: int = AB_CROWD, duration: float = AB_DURATION_S,
+                           out_dir: str | None = None) -> dict:
+    """Phase 14: the reference's overload A/B bench on four served nodes
+    a net. Unless ``c_tx`` is given, a calibration pair of nets (no
+    tables) is driven closed loop, one net after the other, and C_tx is
+    the mean of their committed rates. Then each workload: a pair of nets
+    (uncontrolled: no ``[overload]`` table; controlled:
+    ``overload_objectives(cap)``, cap the per-node verify rate at C_tx),
+    started together and up through both arms; the same schedule on
+    each. A row a cell goes to ``out_dir`` (``tools/_common.OUT_DIR`` by
+    default). A failed gate fails the phase once all four cells printed."""
+    import tempfile
+
+    from at2_node_tpu_torch.crypto.keys import SignKeyPair
+    from at2_node_tpu_torch.node.config import Config
+    from at2_node_tpu_torch.sim.net import sim_client
+    from at2_node_tpu_torch.sim.scenarios import _OVERLOAD_SIGS_PER_TX, _OVERLOAD_WORKLOADS, overload_objectives
+    from at2_node_tpu_torch.tools._common import OUT_DIR, card_stamp
+
+    t14 = time.perf_counter()
+    stamp = card_stamp("cuda:0" if kind == "cuda" else "cpu")
+    rows, failures, cal = [], [], None
+    senders = ABSenders()
+    try:
+        with tempfile.TemporaryDirectory(prefix="at2-phase14-") as workdir:
+            if c_tx is None:
+                rng = np.random.default_rng(seed + 14)
+                cal_keys = [SignKeyPair(rng.bytes(32)) for _ in range(CAL_CLIENTS)]
+                nets = [ab_net(kind, os.path.join(workdir, f"cal{k}"), None, None) for k in range(2)]
+                try:
+                    start_pair(nets, "overload A/B calibration (14)")
+                    runs = [await calibrate(net, senders, cal_keys, CAL_SECONDS, seed,
+                                            f"overload A/B calibration (14, net {k})") for k, net in enumerate(nets)]
+                finally:
+                    rcs = [net.stop() for net in nets]
+                check(all(r == [0] * len(r) for r in rcs), f"overload A/B calibration (14): servers exited with "
+                      f"{rcs} on SIGTERM")
+                c_tx = sum(r["tx_per_s"] for r in runs) / len(runs)
+                sigs_per_tx = sum(r["sigs_per_tx"] for r in runs) / len(runs)
+                cal = {"nets": runs, "c_tx": c_tx, "sigs_per_tx": sigs_per_tx}
+            else:
+                sigs_per_tx = _OVERLOAD_SIGS_PER_TX
+            cap = c_tx * sigs_per_tx / NET_NODES
+            ov = overload_objectives(cap)
+            log(f"overload A/B (14): C_tx {c_tx:,.1f} tx/s ({'the mean of the two calibration nets' if cal else 'given'}), "
+                f"{sigs_per_tx:.2f} signatures a transfer ({'measured' if cal else 'the reference'}; the reference "
+                f"models {_OVERLOAD_SIGS_PER_TX:.0f}): the controlled arms' cap {cap:,.1f} sigs/s a node (each node's "
+                f"controller reads its own verifier), {cap * NET_NODES:,.1f} for the fleet; overload_objectives(cap): "
+                f"queue_target {ov.queue_target}, sample_interval {ov.sample_interval}, smoothing {ov.smoothing}, "
+                f"sojourn_target_ms {ov.sojourn_target_ms}, retry_after_ms [{ov.retry_after_ms}, "
+                f"{ov.retry_after_max_ms}]")
+            for workload in AB_WORKLOADS:
+                tune = _OVERLOAD_WORKLOADS[workload]
+                n_tx = ab_n_tx(c_tx, tune["capacity_frac"], duration)
+                trace_cap = max(4096, 4 * n_tx)  # the reference cell's rule
+                plan = {"seed": seed, "workload": workload, "crowd": crowd, "cap": cap, "c_tx": c_tx,
+                        "sigs_per_tx": sigs_per_tx, "card": stamp, "latency_slo_ms": tune["latency_slo_ms"],
+                        "trace_cap": trace_cap, "keys": [sim_client(seed, i) for i in range(n_clients)],
+                        "events": ab_schedule(seed, workload, NET_NODES, n_clients, crowd, n_tx, duration),
+                        "steady_ids": ab_steady_ids(workload, n_clients, crowd)}
+                log(f"overload A/B (14, {workload}): n_tx {n_tx} = round({duration} s x C_tx / capacity_frac "
+                    f"{tune['capacity_frac']}), {n_clients} clients ({len(plan['steady_ids'])} steady), "
+                    f"latency_slo_ms {tune['latency_slo_ms']:.0f}; trace and recorder caps {trace_cap}")
+                nets = {on: ab_net(kind, os.path.join(workdir, f"{workload}-{'on' if on else 'off'}"),
+                                   ov if on else None, trace_cap) for on in (False, True)}
+                pair = []
+                try:
+                    start_pair([nets[False], nets[True]], f"overload A/B node nets (14, {workload})")
+                    for on, net in nets.items():
+                        for path in net.tomls:
+                            with open(path) as f:
+                                got = Config.loads(f.read())
+                            check(got.overload == (ov if on else type(ov)()) and
+                                  got.observability.trace_done_cap == trace_cap and
+                                  got.echo_threshold == got.ready_threshold == 2,
+                                  f"{path}: its [overload] table {got.overload} is not the arm's")
+                    for on in (False, True):
+                        pair.append(await ab_arm(nets[on], senders, {**plan, "table": ov if on else None}, on,
+                                                 kind, failures))
+                finally:
+                    rcs = [net.stop() for net in nets.values()]
+                check(all(r == [0] * len(r) for r in rcs), f"overload A/B node nets (14, {workload}): servers "
+                      f"exited with {rcs} on SIGTERM")
+                rows += pair
+                off, on_ = pair
+                log(f"overload A/B (14, {workload}): the reference's bar (run_overload_ab's ok: the uncontrolled arm "
+                    f"breaches latency_slo_ms {tune['latency_slo_ms']:.0f}, the controlled arm holds it with fairness "
+                    f">= {AB_FAIRNESS_FLOOR}): uncontrolled steady p99 {off['steady_p99_ms']:.1f} ms: "
+                    f"{'held' if not off['slo_ok'] else 'MISSED'}; controlled steady p99 {on_['steady_p99_ms']:.1f} "
+                    f"ms, fairness {on_['fairness']:.4f}: {'held' if on_['slo_ok'] and on_['fairness_ok'] else 'MISSED'}"
+                    f"; shed {off['shed']} / {on_['shed']} entries; {card_line}")
+    finally:
+        senders.close()
+    bars = {w: (not r[0]["slo_ok"]) and r[1]["slo_ok"] and r[1]["fairness_ok"]
+            for w, r in zip(AB_WORKLOADS, zip(rows[0::2], rows[1::2]))}
+    doc = {"bench": "overload_ab_served", "seed": seed, "card": stamp, "calibration": cal, "cells": rows,
+           "bars": bars, "ok": all(bars.values())}
+    os.makedirs(out_dir or OUT_DIR, exist_ok=True)
+    path = os.path.join(out_dir or OUT_DIR, "overload_ab_served.json")
+    write_json(path, doc)
+    seconds = time.perf_counter() - t14
+    c3 = [r["strict_c3_held"] for r in rows if r["strict_c3_held"] is not None]
+    log(f"overload A/B (14): {len(rows)} rows written to {path}; the reference's bar: "
+        + ", ".join(f"{w} {'held' if ok else 'MISSED'}" for w, ok in bars.items())
+        + f" (printed, not gated on); strict check (c) 3: {'held' if all(c3) else 'MISSED'}; phase 14 took "
+        f"{seconds:.1f} s; {card_line}")
+    check(not failures, "phase 14: " + "; ".join(failures))
+    return {"rows": rows, "bars": bars, "calibration": cal, "path": path, "seconds": seconds,
+            "launches": sum(sum(r["kernel_launches"]) for r in rows)
+            + (sum(sum(r["launches"]) for r in cal["nets"]) if cal else 0)}
+
+
 def device_share(run: dict, by_lanes: dict) -> float:
     """Kernel time on the card over the run's wall time, from phase 3's
     per-bucket kernel times (device clock) and the run's flush buckets."""
@@ -4248,6 +5179,8 @@ def main() -> None:
     lap("12")
     overload = asyncio.run(overload_path(args.seed, times, device_name, card))
     lap("13")
+    overload_ab = asyncio.run(overload_ab_path(args.seed, card))
+    lap("14")
     log(f"phase seconds (in the order they ran): {json.dumps(laps)}, {sum(laps.values()):.1f} in all; {card}")
 
     from at2_node_tpu_torch.ops import cuda_verify
@@ -4272,7 +5205,8 @@ def main() -> None:
         "route": "cuda",
         "source": "at2_node_tpu_torch/csrc/ed25519_verify.cu",
         "replaces": "at2_node_tpu/ops/pallas_verify.py:232",
-        "launches": mp["stress"]["launches"] + tool_launches["ed25519_verify"] + overload["launches"],
+        "launches": (mp["stress"]["launches"] + tool_launches["ed25519_verify"] + overload["launches"]
+                     + overload_ab["launches"]),
         "mismatches": kp["mismatches"],
         "max_abs_err": kp["max_abs_err"],
         "lanes": 65536,
@@ -4287,7 +5221,10 @@ def main() -> None:
         "main_path": {**runs, "tools": {row["tool"]: row.get("launches", {}).get("ed25519_verify", 0)
                                         for row in tools},
                       "overload": {arm: [p["launches"] for p in overload[f"overload_{arm}"]["nodes"]]
-                                   for arm in ("off", "on")}},
+                                   for arm in ("off", "on")},
+                      "overload_ab": {"calibration": [r["launches"] for r in overload_ab["calibration"]["nets"]],
+                                      **{f"{r['workload']}/{r['arm']}": r["kernel_launches"]
+                                         for r in overload_ab["rows"]}}},
         "card": card,
     }]
     # the RLC kernels' main path: phase 7's node net (the processes' counts)
@@ -4362,6 +5299,7 @@ def main() -> None:
     })
     print(json.dumps({"sim": sim}))
     print(json.dumps({"overload": overload}))
+    print(json.dumps({"overload_ab": {k: overload_ab[k] for k in ("rows", "bars", "calibration", "path")}}))
     for row in tools:
         print(json.dumps(row))
     print(json.dumps({"kernels": kernels}))

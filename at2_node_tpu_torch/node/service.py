@@ -959,10 +959,16 @@ class Service(At2Servicer):
         scfg = self.config.store
         ccfg = self.config.checkpoint
         if not scfg.dir:
-            if ccfg.path:
-                await ckpt.load(
-                    ccfg.path, self.accounts, self.recent, self.directory
-                )
+            if ccfg.path and await ckpt.load(
+                ccfg.path, self.accounts, self.recent, self.directory
+            ):
+                # restored from its own snapshot: the node is behind the
+                # fleet by whatever committed while it was down, so it
+                # walks catchup -> live as a store-backed restart does
+                # (start() marks it live at once when no peer can serve
+                # a catchup); the reference leaves it "cold" throughout
+                self.recovery.started_at = self.clock.monotonic()
+                self.recovery.advance("catchup")
             return
         self.recovery.started_at = self.clock.monotonic()
         legacy = None

@@ -332,7 +332,62 @@ is printed):
    ``at2_node_tpu_torch/build/bench/overload_ab_served.json``; the
    reference's bar per workload (uncontrolled breaches latency_slo_ms,
    controlled holds it with fairness >= 0.8) is printed, not gated on.
-15. One JSON line describing the kernels (their times and bound at every
+15. The served ``[wan]``, ``[checkpoint]`` rejoin and ``[membership]``
+   paths (run after phase 14).
+   15a. Two nets of four ``server run`` nodes with ``kind = "cuda"`` as in
+       phase 6, at thresholds of two peers (f = 1), started together, each
+       ``[[nodes]]`` entry with its node's region hint (nodes 0-1 "eu",
+       2-3 "us"), every node with trace caps of 16,384, node 3 with
+       ``[checkpoint]`` (1 s) and ``[catchup] after = 0.5, window = 1.0``;
+       arm off with no ``[wan]`` table and ``tools/broker.py`` in front of
+       node 0, arm on with ``overlap_ready``, ``region_fanout``,
+       ``verify_ahead`` and ``eager_broker`` on, each node's own region,
+       and the broker with ``--eager``. Each arm, the same seed: 16
+       clients register (one committed transfer each), then send a unary
+       ``SendAsset`` each every 100 ms for 8 s, round-robin over the nodes
+       (then node 0's ``/capturez`` is read); 4 x 16 lone transfers
+       through the broker (``loadgen --broker``); one ``SendAssetBatch``
+       burst of 16 x 256. ``/healthz`` polled at 5 Hz throughout. Gated:
+       every transfer committed on all four nodes and every ledger equal
+       to the python-int replay, every paced and broker transfer stamped
+       committed on every node's ``/tracez``, ``broker_eager_flushes`` > 0
+       on and 0 off, every ``/healthz`` poll answered and a non-200 only
+       as a 503 for an SLO breach, K1 launches on every node; once both
+       arms ran, arm on's share of node 0's captured Echo frames (decoded
+       with ``messages.parse_frame``) that carry their Ready above arm
+       off's and above 0, and more Readies sent before their echo quorum
+       (the nodes' phase markers, ``trace_collect.phase_overlap``) on
+       than off. Printed: each arm's paced ack-to-commit p50/p99 (the
+       latest of the four commit stamps), the broker tier's (broker_rx
+       to the last commit), the burst's committed tx/s.
+   15b. On arm on's net: node 3 stops (SIGTERM; its snapshot must equal
+       the replay), the burst's clients commit 256 more each on nodes
+       0-2 (before them a client at each re-registers a key the node
+       assigned until its sender to node 3 has failed, after them until
+       its mesh has dropped as many messages as its queues held: the tail
+       is not replayed on redial, as after a long absence), and node 3
+       restarts from the same TOML. Gated: recovery
+       states catchup then ``live`` within 120 s, every tail transfer
+       applied by catch-up (``catchup_applied``), ``catchup_preverified``
+       > 0, K1 launches while it caught up, every ledger equal to the
+       replay. The reference's catch-up runner can end with the node
+       behind (ROADMAP section 3): whether every tail sender was caught
+       up when ``live`` came is a strict check, printed, not gated; when
+       it missed, one more transfer of each tail sender goes to every
+       node and kicks a new catch-up. Printed: seconds to ``live``, the
+       pre-verified share, the polls that read a nonzero verifier queue.
+   15c. Four in-process port nodes sharing one ``make_verifier("cuda")``,
+       each with ``[membership] admin_public`` and a 1 s grace: a round
+       commits on all four; an admin-signed ``ConfigTx`` for epoch 1
+       (remove node 3, thresholds 2) goes in at node 0 through
+       ``_on_config_tx(None, tx)``; every node must reach epoch 1 with
+       thresholds (2, 2), a round commit on nodes 0-2, ``evicted_final``
+       reach 1 on nodes 0-2; epoch 1 again must change nothing and an
+       epoch-5 ConfigTx count ``rejected`` and change nothing else; a
+       third round commits on nodes 0-2, their ledgers equal to the
+       replay; K1 launches. Every server exits 0 on SIGTERM, each broker
+       0 on SIGINT.
+16. One JSON line describing the kernels (their times and bound at every
    shape, every main-path run, the ptxas figures), then the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -1464,16 +1519,18 @@ class ServerNet:
     cpu`` for the host kind), every other node's ``config get-node``
     fragment appended. ``top``, when given, is top-level TOML keys put
     before node i's config (the thresholds); ``tables(i)`` is TOML text
-    appended after the fragments (``[plane]``, ``[store]``)."""
+    appended after the fragments (``[plane]``, ``[store]``); ``regions[j]``,
+    when given, is the ``region`` hint added to node j's fragment."""
 
     def __init__(self, kind: str, workdir: str, n: int = NET_NODES, mode: str = "auto",
-                 top: str = "", tables=None) -> None:
+                 top: str = "", tables=None, regions=None) -> None:
         self.kind = kind
         self.mode = mode
         self.workdir = workdir
         self.n = n
         self.top = top
         self.tables = tables
+        self.regions = regions
         self.procs: list = []
         self.logs: list = []
         self.tomls: list = []
@@ -1511,6 +1568,8 @@ class ServerNet:
         # the operator's one edit for another verifier mode
         configs = [c.replace(table, table.replace('"auto"', f'"{self.mode}"')) for c in configs]
         fragments = self._cli([server_argv("config", "get-node")] * self.n, configs)
+        if self.regions is not None:  # the operator's hint on each [[nodes]] entry
+            fragments = [f.rstrip("\n") + f'\nregion = "{self.regions[j]}"\n' for j, f in enumerate(fragments)]
         for i in range(self.n):
             toml = self.top + configs[i] + "\n" + "\n".join(f for j, f in enumerate(fragments) if j != i)
             if self.tables is not None:
@@ -1658,13 +1717,14 @@ def signing_pass(clients: list, per_client: list) -> float:
     return time.perf_counter() - t0
 
 
-def wait_committed(net: ServerNet, want: list, deadline_s: float) -> float:
+def wait_committed(net: ServerNet, want: list, deadline_s: float, nodes=None) -> float:
     """Poll each node's committed count (one /healthz GET per node every
     NODE_POLL_S) until node i has committed ``want[i]``; the perf_counter
     time of the poll that saw the last node get there. The window's end
     is known to within one poll period, and the probe costs each node
-    1/NODE_POLL_S small requests a second."""
-    pending = set(range(net.n))
+    1/NODE_POLL_S small requests a second. ``nodes``: the nodes to wait
+    for (every node by default)."""
+    pending = set(range(net.n) if nodes is None else nodes)
     t_end = time.perf_counter() + deadline_s
     last = 0.0
     while pending:
@@ -2472,13 +2532,13 @@ def finality_checks(net: ServerNet, keys: list, rng, label: str) -> dict:
     return {"chain_len": lengths, "commits": newest[0].commits, "signers": [c.signer_count() for c in newest]}
 
 
-def start_broker(net: ServerNet, workdir: str):
-    """``tools/broker.py`` in front of node 0, as a process: its URL and
-    the process once its port accepts."""
+def start_broker(net: ServerNet, workdir: str, eager: bool = False):
+    """``tools/broker.py`` in front of node 0, as a process (with
+    ``--eager`` if asked): its URL and the process once its port accepts."""
     port = free_ports(1)[0]
     argv = [sys.executable, "-m", "at2_node_tpu_torch.tools.broker",
             "--node", f"http://127.0.0.1:{net.rpc_ports[0]}", "--listen", f"127.0.0.1:{port}",
-            "--max-entries", str(BROKER_MAX_ENTRIES)]
+            "--max-entries", str(BROKER_MAX_ENTRIES)] + (["--eager"] if eager else [])
     with open(os.path.join(workdir, "broker.log"), "w") as out:
         proc = subprocess.Popen(argv, stdout=out, stderr=subprocess.STDOUT, env=checkout_env())
     t_end = time.perf_counter() + 60.0
@@ -3577,6 +3637,14 @@ def counted_retry(seed: int, retried: list):
     return Counted(budget=OVERLOAD_RETRY_BUDGET, rng=random.Random(seed).random)
 
 
+def slo_breach(h: tuple) -> bool:
+    """A ``Poller`` /healthz reading answered 503 ``degraded`` for SLO
+    breaches alone (never a stall, a lost quorum, a divergence or a dead
+    worker)."""
+    why = h[5].split("+")
+    return h[1] == 503 and why[0] == "degraded" and len(why) > 1 and all(r.startswith("slo:") for r in why[1:])
+
+
 def health_reason(body: dict) -> str:
     """Why a /healthz verdict is not ``ok``: its status and the fields
     that decided it."""
@@ -3780,7 +3848,8 @@ async def register_keys(net: ServerNet, clients: list, keys: list, numbers=None)
     return sizes[0]
 
 
-async def register_steady(net: ServerNet, clients: list, keys: list, seeds: list) -> None:
+async def register_steady(net: ServerNet, clients: list, keys: list, seeds: list,
+                          label: str = "overload node net") -> None:
     """The steady tier joins before the crowd: ``register_keys``, then
     each key commits one transfer (``seeds[c]``, sequence 1) on every
     node."""
@@ -3789,7 +3858,7 @@ async def register_steady(net: ServerNet, clients: list, keys: list, seeds: list
     before = [net.committed(i) for i in range(n)]
     await asyncio.gather(*(clients[c % n].send_asset(kp, 1, *seeds[c]) for c, kp in enumerate(keys)))
     wait_committed(net, [b + len(keys) for b in before], 60.0)
-    log(f"overload node net: {len(keys)} steady clients registered (through node c mod {n}) and one "
+    log(f"{label}: {len(keys)} steady clients registered (through node c mod {n}) and one "
         f"transfer each committed on all {n} nodes; directory_size {size} on every node, and Register "
         f"of each key at every node answered the id it was given")
 
@@ -4043,8 +4112,7 @@ def overload_readings(net: ServerNet, run: dict, on: bool, plan: dict, by_lanes,
         # a dead worker. The strict form (200 ok/overloaded at every poll)
         # is a known miss: printed
         not_ok = [h for h in health if h[1] != 200 or h[2] not in ("ok", "overloaded")]
-        slo_only = [h for h in not_ok if h[1] == 503 and h[5].split("+")[0] == "degraded"
-                    and len(h[5].split("+")) > 1 and all(r.startswith("slo:") for r in h[5].split("+")[1:])]
+        slo_only = [h for h in not_ok if slo_breach(h)]
         gate(len(slo_only) == len(not_ok), f"node {i}: /healthz answered {len(not_ok) - len(slo_only)} of "
              f"{len(health)} polls otherwise than 200 ok/overloaded or 503 for an SLO breach: "
              f"{dict(Counter((h[1], h[5]) for h in not_ok if h not in slo_only))}")
@@ -5100,6 +5168,633 @@ async def overload_ab_path(seed: int, card_line: str, kind: str = "cuda", c_tx: 
             + (sum(sum(r["launches"]) for r in cal["nets"]) if cal else 0)}
 
 
+# -- phase 15 --------------------------------------------------------------
+
+
+WAN_REGIONS = ("eu", "eu", "us", "us")  # node i's [wan] region and the hint on its [[nodes]] entries
+WAN_PACED_CLIENTS = 16  # registered clients, a unary SendAsset each every WAN_PACED_PERIOD_S
+WAN_PACED_PERIOD_S = 0.1
+WAN_PACED_S = 8.0
+WAN_BROKER_CLIENTS = 4  # loadgen --broker: lone transfers through the broker
+WAN_BROKER_PER = 16
+WAN_BURST_CLIENTS = 16  # one SendAssetBatch burst a client
+WAN_BURST_PER = 256
+WAN_TAIL_PER = 256  # 15b: transfers a burst client commits on nodes 0-2 while node 3 is down
+# every transfer of an arm stays on /tracez, where the paced tier's and the
+# broker tier's commit stamps are read
+WAN_TRACE_CAP = 16384
+REJOIN_NODE = 3  # 15b: the node with [checkpoint] that stops and rejoins
+REJOIN_CHECKPOINT_S = 1.0  # its [checkpoint] interval
+REJOIN_CATCHUP = "[catchup]\nafter = 0.5\nwindow = 1.0\n"  # its catch-up: a session within ~1.5 s
+REJOIN_LIVE_S = 120.0
+FILLER_CHUNK = 256  # 15b: Register calls in flight a survivor while its queue to node 3 is pushed out
+MEMBERSHIP_GRACE_S = 1.0  # 15c: [membership] grace
+MEMBERSHIP_CLIENTS = 8  # 15c: clients, each MEMBERSHIP_PER transfers a round (three rounds)
+MEMBERSHIP_PER = 16
+
+
+def wan_plan(seed: int, paced: int, broker: int, burst: int) -> dict:
+    """Both arms' keys and transfers, from ``seed``: the paced tier's keys
+    and each one's registration transfer, the broker tier's loadgen seed,
+    the burst's keys and transfers."""
+    from at2_node_tpu_torch.crypto.keys import SignKeyPair
+
+    rng = np.random.default_rng(seed + 15)
+    keys = [SignKeyPair(rng.bytes(32)) for _ in range(paced)]
+    burst_keys = [SignKeyPair(rng.bytes(32)) for _ in range(burst)]
+    return {"seed": seed, "paced": keys,
+            "seeds": [(keys[(c + 1) % paced].public, int(rng.integers(1, 51))) for c in range(paced)],
+            "broker_seed": seed + 1500, "broker_clients": broker, "burst": burst_keys, "rng": rng}
+
+
+def wan_net(on: bool, kind: str, workdir: str) -> ServerNet:
+    """An arm's four ``server run`` nodes at thresholds of two peers (f =
+    1), the region hints on every ``[[nodes]]`` entry, the trace caps, node
+    REJOIN_NODE with ``[checkpoint]`` and a short ``[catchup]``; arm on with
+    the four ``[wan]`` levers and each node's own region."""
+    os.makedirs(workdir)
+    checkpoint = os.path.join(workdir, f"node{REJOIN_NODE}.ckpt")
+
+    def tables(i: int) -> str:
+        text = f"[observability]\ntrace_cap = {WAN_TRACE_CAP}\ntrace_done_cap = {WAN_TRACE_CAP}\n"
+        if on:
+            text += (f'\n[wan]\noverlap_ready = true\nregion_fanout = true\nregion = "{WAN_REGIONS[i]}"\n'
+                     "verify_ahead = true\neager_broker = true\n")
+        if i == REJOIN_NODE:
+            text += f'\n[checkpoint]\npath = "{checkpoint}"\ninterval = {REJOIN_CHECKPOINT_S}\n\n{REJOIN_CATCHUP}'
+        return text
+
+    net = ServerNet(kind, workdir, top=AB_THRESHOLDS, tables=tables, regions=WAN_REGIONS)
+    net.checkpoint = checkpoint
+    return net
+
+
+def piggybacked(capture: dict) -> tuple:
+    """A ``/capturez`` dump's frames decoded with ``messages.parse_frame``:
+    how many hold an Echo, and how many hold an Echo and a Ready of one
+    slot and one content from one origin (the per-transaction ECHO and
+    READY, or the batched BATCH_ECHO and BATCH_READY)."""
+    from at2_node_tpu_torch.broadcast.messages import (
+        BATCH_ECHO, ECHO, READY, Attestation, BatchAttestation, parse_frame)
+
+    echo_frames = carried = 0
+    for rec in capture["records"]:
+        echoes, readies = set(), set()
+        for m in parse_frame(bytes.fromhex(rec[3])):
+            if isinstance(m, Attestation) and m.phase in (ECHO, READY):
+                (echoes if m.phase == ECHO else readies).add((m.origin, m.sender, m.sequence, m.content_hash))
+            elif isinstance(m, BatchAttestation):
+                (echoes if m.phase == BATCH_ECHO else readies).add(
+                    (m.origin, m.batch_origin, m.batch_seq, m.batch_hash))
+        echo_frames += bool(echoes)
+        carried += bool(echoes & readies)
+    return echo_frames, carried
+
+
+async def wan_drive(net: ServerNet, broker: str, plan: dict, label: str, paced_s: float,
+                    broker_per: int, burst_per: int) -> dict:
+    """An arm's three tiers on its started net, ``/healthz`` and the
+    pressure block polled throughout: the paced tier registers, then each
+    of its clients sends a unary ``SendAsset`` every WAN_PACED_PERIOD_S for
+    ``paced_s``, round-robin over the nodes, and node 0's ``/capturez`` is
+    read; then lone transfers through the broker (``loadgen --broker``);
+    then one ``SendAssetBatch`` burst a client, client c to node c mod n.
+    Every tier's transfers commit on every node before the next begins."""
+    from at2_node_tpu_torch.client import Client
+    from at2_node_tpu_torch.tools import loadgen
+
+    n, keys, seed = net.n, plan["paced"], plan["seed"]
+    run = {"status0": [net.statusz(i) for i in range(n)], "acks": [[] for _ in keys], "broker_per": broker_per}
+    clients = [Client(f"http://127.0.0.1:{p}") for p in net.rpc_ports]
+
+    async def paced(c: int, t0: float) -> None:
+        kp, prng, acks = keys[c], np.random.default_rng([seed, 15, c]), run["acks"][c]
+        k = 0
+        while (t_k := t0 + (k + c / len(keys)) * WAN_PACED_PERIOD_S) < t0 + paced_s:
+            await asyncio.sleep(max(0.0, t_k - time.monotonic()))
+            recipient = keys[(c + 1 + int(prng.integers(0, len(keys) - 1))) % len(keys)].public
+            amount = int(prng.integers(1, 51))
+            await clients[(c + k) % n].send_asset(kp, k + 2, recipient, amount)
+            acks.append((k + 2, recipient, amount, time.monotonic()))
+            k += 1
+
+    try:
+        with Poller(net) as poll:
+            t0 = time.monotonic()
+            await register_steady(net, clients, keys, plan["seeds"], label)
+            before = [net.committed(i) for i in range(n)]
+            t_paced = time.monotonic()
+            await asyncio.gather(*(paced(c, t_paced) for c in range(len(keys))))
+            n_paced = sum(map(len, run["acks"]))
+            wait_committed(net, [b + n_paced for b in before], NET_DEADLINE_S)
+            run["capture"] = json.loads(net.get(0, "/capturez"))
+
+            before = [net.committed(i) for i in range(n)]
+            t_b = time.perf_counter()
+            load = await loadgen.run_load([f"http://{broker}"], clients=plan["broker_clients"],
+                                          tx_per_client=broker_per, broker=True, seed=plan["broker_seed"],
+                                          commit_timeout=NET_DEADLINE_S)
+            n_broker = plan["broker_clients"] * broker_per
+            check(load.submitted == load.committed == n_broker,
+                  f"{label}: loadgen --broker submitted {load.submitted}, committed {load.committed} of {n_broker}")
+            run["broker_s"] = wait_committed(net, [b + n_broker for b in before], NET_DEADLINE_S) - t_b
+
+            rng = np.random.default_rng(seed + 1501)
+            run["burst_transfers"] = more_transfers(rng, plan["burst"], 1, burst_per)
+            run["burst"] = await node_run(net, label, plan["burst"], run["burst_transfers"], True, {},
+                                          burst_per, NET_DEADLINE_S)
+            t_poll_end = time.monotonic()
+    finally:
+        for cl in clients:
+            await cl.close()
+    run.update(poll=poll, t0=t0, t_poll_end=t_poll_end, n_paced=n_paced, n_broker=n_broker)
+    return run
+
+
+async def wan_collect(net: ServerNet, broker: str, run: dict, plan: dict, kind: str, on: bool,
+                      card_line: str, failures: list) -> dict:
+    """Right after an arm's tiers, its net still up: the ledgers against
+    the replay, every node's ``/statusz``, the nodes' and the broker's
+    ``/tracez``, the broker's ``/statusz``; the arm's readings printed and
+    its failed gates appended to ``failures``."""
+    from at2_node_tpu_torch.tools import loadgen
+    from at2_node_tpu_torch.tools.trace_collect import _pctl, phase_overlap, stitch
+
+    n, keys = net.n, plan["paced"]
+    label = f"wan node net (15a, arm {'on' if on else 'off'})"
+
+    def gate(cond: bool, what: str) -> None:
+        if not cond:
+            failures.append(f"{label}: {what}")
+
+    broker_keys = loadgen.client_keys(plan["broker_clients"], plan["broker_seed"])
+    per_broker = run["broker_per"]
+    await check_replay(net, keys, [[(1, *plan["seeds"][c])] + [a[:3] for a in run["acks"][c]]
+                                   for c in range(len(keys))])
+    await check_replay(net, broker_keys, [[(s, kp.public, 1) for s in range(1, per_broker + 1)]
+                                          for kp in broker_keys])
+    await check_replay(net, plan["burst"], run["burst_transfers"])
+    with ThreadPoolExecutor(max_workers=n) as pool:
+        status = list(pool.map(net.statusz, range(n)))
+        traces = list(pool.map(lambda i: json.loads(net.get(i, f"/tracez?limit={WAN_TRACE_CAP}")), range(n)))
+    bstat = http_json(broker, "/statusz")["stats"]
+    btrace = http_json(broker, f"/tracez?limit={WAN_TRACE_CAP}")
+
+    lats, stamped_on, short = steady_latencies(traces, keys, run["acks"])
+    gate(not short and bool(lats), f"{len(short)} of {run['n_paced']} paced transfers lack a commit stamp on "
+         f"some node's /tracez (transfers by the number of nodes that stamped them: {stamped_on})")
+    ms = lambda xs, q: 1e3 * _pctl(sorted(xs), q) if xs else float("nan")  # noqa: E731
+    rx = {(r["sender"], r["seq"]): mono for r in btrace["completed"] + btrace["live"]
+          for stage, mono, _ in r["stages"] if stage == "broker_rx"}
+    want = {(kp.public.hex(), s) for kp in broker_keys for s in range(1, per_broker + 1)}
+    _, b_lats, b_stamped = ab_latencies(traces, {k: t for k, t in rx.items() if k in want}, set())
+    gate(len(b_lats) == len(want), f"{len(want) - len(b_lats)} of {len(want)} broker transfers lack a broker_rx "
+         f"stamp or a commit stamp on some node (by the number of nodes: {b_stamped})")
+
+    # the piggyback on the wire (frames that carry an Echo with its Ready)
+    # and in the nodes' phase markers (a Ready sent before its echo
+    # quorum: trace_collect's negative echo->ready gap); both arms' are
+    # compared once both have run (wan_served_path)
+    echo_frames, carried = piggybacked(run["capture"])
+    records = len(run["capture"]["records"])
+    overlap = phase_overlap(stitch(traces))
+    early = overlap["piggybacked"]
+    eager = bstat["broker_eager_flushes"]
+    gate(eager > 0 if on else eager == 0, f"broker_eager_flushes {eager}")
+
+    t0, t_end, poll = run["t0"], run["t_poll_end"], run["poll"]
+    nodes = []
+    for i in range(n):
+        health = [h for h in poll.health(i) if t0 <= h[0] <= t_end]
+        unanswered = sum(1 for h in health if h[1] is None)
+        not_ok = [h for h in health if h[1] is not None and (h[1] != 200 or h[2] != "ok")]
+        slo_only = [h for h in not_ok if slo_breach(h)]
+        gate(health and not unanswered, f"node {i}: {unanswered} of {len(health)} /healthz polls unanswered")
+        gate(len(slo_only) == len(not_ok), f"node {i}: /healthz answered {len(not_ok) - len(slo_only)} polls "
+             f"otherwise than 200 ok or 503 for an SLO breach: "
+             f"{dict(Counter((h[1], h[5]) for h in not_ok if h not in slo_only))}")
+        launches = status[i]["build"]["kernel_launches"] - run["status0"][i]["build"]["kernel_launches"]
+        if kind == "cuda":
+            gate(launches > 0, f"node {i}: the verify kernel never launched")
+        nodes.append({"launches": launches, "healthz_polls": len(health),
+                      "healthz_not_ok": dict(Counter(h[5] for h in not_ok)),
+                      "queue_peak": status[i]["stats"].get("verifier_queue_peak")})
+    burst = run["burst"]
+    out = {
+        "arm": "on" if on else "off", "paced_p50_ms": ms(lats, 0.50), "paced_p99_ms": ms(lats, 0.99),
+        "paced_committed": run["n_paced"], "broker_p50_ms": ms(b_lats, 0.50), "broker_p99_ms": ms(b_lats, 0.99),
+        "broker_committed": run["n_broker"], "broker_s": run["broker_s"], "burst_tx_per_s": burst["tx_per_s"],
+        "burst_committed": burst["transfers"], "capture_records": records, "echo_frames": echo_frames,
+        "echo_ready_frames": carried, "ready_before_echo_quorum": early, "overlap_spans": overlap["spans"],
+        "overlap_gap_p50_ms": overlap["gap_p50_ms"], "broker_eager_flushes": eager,
+        "broker_flushes": bstat.get("broker_batches_tx"), "nodes": nodes,
+        "launches": sum(p["launches"] for p in nodes),
+    }
+    log(f"{label}: paced tier {len(keys)} clients, {run['n_paced']} unary transfers committed on all {n} nodes; "
+        f"acknowledgement to commit on every node (the latest of the {n} nodes' /tracez stamps) p50 "
+        f"{out['paced_p50_ms']:.1f} ms, p99 {out['paced_p99_ms']:.1f} ms; broker tier "
+        f"{plan['broker_clients']} x {per_broker} lone transfers (loadgen --broker"
+        + (", the broker with --eager" if on else "") + f"): broker_rx to the last node's commit p50 "
+        f"{out['broker_p50_ms']:.1f} ms, p99 {out['broker_p99_ms']:.1f} ms, broker_eager_flushes {eager} of "
+        f"{out['broker_flushes']} frames; burst {len(plan['burst'])} x {len(run['burst_transfers'][0])} "
+        f"(SendAssetBatch) {burst['tx_per_s']:,.0f} tx/s committed; node 0's /capturez: {carried} of "
+        f"{records} frames carry an Echo with its Ready ({echo_frames} hold an Echo); the nodes' phase markers: "
+        f"{early} of {overlap['spans']} (transfer, node) spans sent the Ready before the echo quorum, "
+        f"echo->ready gap p50 {overlap['gap_p50_ms']:.3f} ms, min {overlap['gap_min_ms']:.3f} ms; verify kernel launches a "
+        f"node {[p['launches'] for p in nodes]}; /healthz answers other than 200 ok "
+        f"{[p['healthz_not_ok'] or 'none' for p in nodes]}; every ledger equal to the replay; {card_line}")
+    return out
+
+
+def rejoin_frontier(path: str) -> dict:
+    """The accounts of node REJOIN_NODE's ``[checkpoint]`` snapshot
+    (hex key -> [sequence, balance]); empty while it has none."""
+    try:
+        with open(path) as f:
+            return json.load(f).get("accounts", {})
+    except (FileNotFoundError, json.JSONDecodeError):
+        return {}
+
+
+async def reannounce(net: ServerNet, survivors: list, keys: dict, chunk: int, done, label: str) -> dict:
+    """A client at each survivor i re-registers ``keys[i]``, a key node i
+    assigned (free, and one DirectoryAnnounce to every peer a call), in
+    ``chunk`` calls at a time until ``done(stats at the start, stats
+    now)`` holds for node i's ``/statusz`` stats; the calls a survivor."""
+    import grpc
+
+    from at2_node_tpu_torch.proto import at2_pb2 as pb
+    from at2_node_tpu_torch.proto.rpc import At2Stub
+
+    calls = {}
+
+    async def one(i: int) -> None:
+        st0, n = net.stats(i), 0
+        req = pb.RegisterRequest(public_key=keys[i].public)
+        async with grpc.aio.insecure_channel(f"127.0.0.1:{net.rpc_ports[i]}") as channel:
+            stub = At2Stub(channel)
+            t_end = time.perf_counter() + 120.0
+            while not done(st0, net.stats(i)):
+                check(time.perf_counter() < t_end, f"{label}: node {i} still short after {n} Register calls")
+                await asyncio.gather(*(stub.Register(req) for _ in range(chunk)))
+                n += chunk
+                await asyncio.sleep(0.01)
+        calls[i] = n
+
+    await asyncio.gather(*(one(i) for i in survivors))
+    return calls
+
+
+async def rejoin_run(net: ServerNet, plan: dict, burst_transfers: list, paced_per_client: list,
+                     broker_per: int, kind: str, card_line: str, tail_per: int) -> dict:
+    """15b, on arm on's net once 15a is over: node REJOIN_NODE stops
+    (SIGTERM: its final snapshot), the burst's clients commit ``tail_per``
+    more each on the other three, what the survivors hold to send it is
+    pushed out (``reannounce``), and it restarts from the same TOML: it
+    loads its snapshot and must catch up the tail through catch-up, with
+    ``verify_ahead`` checking the caught-up payloads on its verifier."""
+    import signal
+
+    from at2_node_tpu_torch.client import Client
+    from at2_node_tpu_torch.crypto.keys import SignKeyPair
+    from at2_node_tpu_torch.tools import loadgen
+
+    n, r = net.n, REJOIN_NODE
+    survivors = [i for i in range(n) if i != r]
+    label = f"wan node net (15b, node {r} rejoins from its [checkpoint])"
+    keys = plan["burst"]
+    broker_keys = loadgen.client_keys(plan["broker_clients"], plan["broker_seed"])
+    everyone = plan["paced"] + broker_keys + keys
+    history = (paced_per_client + [[(s, kp.public, 1) for s in range(1, broker_per + 1)] for kp in broker_keys]
+               + burst_transfers)
+    replay = replay_ledger([(kp.public, *t) for kp, ts in zip(everyone, history) for t in ts])
+    t_end = time.perf_counter() + 30.0
+    while not rejoin_frontier(net.checkpoint):
+        check(time.perf_counter() < t_end, f"{label}: node {r}'s snapshot holds no frontier after 30 s")
+        time.sleep(0.1)
+    net.procs[r].send_signal(signal.SIGTERM)
+    rc = net.procs[r].wait(timeout=60)
+    check(rc == 0, f"{label}: node {r} exited with {rc} on SIGTERM")
+    snap = rejoin_frontier(net.checkpoint)
+    check(snap == replay, f"{label}: node {r}'s snapshot at its stop differs from the replay of what 15a "
+          f"committed ({len(snap)} accounts, the replay {len(replay)})")
+
+    # While node r is down each survivor's mesh queues what it sends r
+    # (net/peers.py: SEND_QUEUE_CAP messages, the oldest dropped first)
+    # and replays it on redial, as after a short absence; so does the
+    # batch its sender held when a send to r first failed. Directory
+    # announcements fill both instead: first until every survivor's
+    # sender to r has failed (``mesh_redials`` grew), then, after the
+    # tail, until its mesh has dropped as many messages as its queues
+    # held. Then nothing of the tail is left to replay, as after a long
+    # absence, and the tail reaches r only through catch-up.
+    filler = {i: SignKeyPair(plan["rng"].bytes(32)) for i in survivors}
+    await reannounce(net, survivors, filler, 4, lambda st0, st: st["mesh_redials"] > st0["mesh_redials"], label)
+    tail = more_transfers(plan["rng"], keys, len(burst_transfers[0]) + 1, tail_per)
+    n_tail = sum(map(len, tail))
+    before = {i: net.committed(i) for i in survivors}
+    t_tail = time.perf_counter()
+    await send_batched(net, keys, tail, lambda c: survivors[c % len(survivors)])
+    wait_committed(net, [before.get(i, 0) + n_tail for i in range(n)], NET_DEADLINE_S, nodes=survivors)
+    tail_s = time.perf_counter() - t_tail
+    held = {i: net.stats(i) for i in survivors}
+    calls = await reannounce(
+        net, survivors, filler, FILLER_CHUNK,
+        lambda st0, st: st["mesh_send_overflows"] - st0["mesh_send_overflows"] >= max(st0["mesh_send_queue_depth"], 1),
+        label)
+    pushed = {i: {"held": held[i]["mesh_send_queue_depth"], "register_calls": calls[i],
+                  "dropped": net.stats(i)["mesh_send_overflows"] - held[i]["mesh_send_overflows"]}
+              for i in survivors}
+
+    t_restart = time.perf_counter()
+    net.restart(r)
+    net.wait_rpc(r, t_restart + 180.0)
+    rpc_s = time.perf_counter() - t_restart
+    up = net.statusz(r)
+    states, depths = [], []
+    while True:
+        status = net.statusz(r)
+        rec = status["recovery"]
+        if not states or states[-1] != rec["state"]:
+            states.append(rec["state"])
+        depths.append(status["stats"].get("verifier_queue_depth", 0))
+        if rec["state"] == "live":
+            break
+        check(time.perf_counter() - t_restart < REJOIN_LIVE_S,
+              f"{label}: node {r} not live {REJOIN_LIVE_S:.0f} s after its restart: {rec}")
+        await asyncio.sleep(0.05)
+    live_s = time.perf_counter() - t_restart
+    want_seq = len(burst_transfers[0]) + tail_per
+    async with Client(f"http://127.0.0.1:{net.rpc_ports[r]}") as conn:
+        seqs = await asyncio.gather(*(conn.get_last_sequence(kp.public) for kp in keys))
+    short_at_live = sum(s != want_seq for s in seqs)
+    nudge = [[] for _ in keys]
+    if short_at_live:
+        # the reference's catch-up runner ends after a session whose peers
+        # answered, reported the node behind, and whose history missed its
+        # quorum in the window (fewer peers had redialed it than the
+        # quorum): the node is live with nothing left to catch it up
+        # (ROADMAP section 3; the port keeps the runner, which the sim's
+        # pinned hashes replay). A later transfer of each tail sender
+        # parks on its sequence gate and kicks a new catch-up, as traffic
+        # would; it commits after the tail
+        nudge = more_transfers(plan["rng"], keys, want_seq + 1, 1)
+        await send_batched(net, keys, nudge, lambda c: c % n)
+        want_seq += 1
+    caught_s = await wait_sequences(net, r, keys, want_seq, NET_DEADLINE_S)
+    for i in survivors:
+        await wait_sequences(net, i, keys, want_seq, NET_DEADLINE_S)
+    status = net.statusz(r)
+    st = status["stats"]
+    applied, pre = st["catchup_applied"], st["catchup_preverified"]
+    launches = status["build"]["kernel_launches"] - up["build"]["kernel_launches"]
+    n_nudge = sum(map(len, nudge))
+    check("cold" not in states, f"{label}: node {r} restarted from its snapshot reported recovery states {states}")
+    # every transfer node r missed came by catch-up, each counted once; a
+    # nudge can come by catch-up too when its own delivery lands later
+    check(n_tail <= applied <= n_tail + n_nudge,
+          f"{label}: node {r} applied {applied} payloads by catch-up; it missed {n_tail} (+ {n_nudge} nudges)")
+    check(pre > 0, f"{label}: node {r} pre-verified no caught-up payload (verify_ahead did not run)")
+    check(kind != "cuda" or launches > 0, f"{label}: node {r}'s verify kernel did not launch while it caught up")
+    full = [t + more + extra for t, more, extra in zip(burst_transfers, tail, nudge)]
+    await check_replay(net, everyone, history[:-len(keys)] + full)
+    skipped = sum(1 for d in depths if d)
+    log(f"{label}: node {r} stopped with its snapshot equal to the replay ({len(snap)} accounts); the other "
+        f"{len(survivors)} committed {n_tail} more transfers ({len(keys)} x {tail_per}, SendAssetBatch) in "
+        f"{tail_s:.3f} s; what they held to send node {r} pushed out by re-registrations (a survivor: Register "
+        f"calls {[pushed[i]['register_calls'] for i in survivors]}, messages dropped "
+        f"{[pushed[i]['dropped'] for i in survivors]} of {[pushed[i]['held'] for i in survivors]} held)")
+    log(f"{label}: node {r} restarted from the same TOML: RPC up {rpc_s:.3f} s after start, recovery states "
+        f"{' -> '.join(states)}, live {live_s:.3f} s after start with {short_at_live} of {len(keys)} tail senders "
+        f"short (strict check, live only once caught up: {'MISSED' if short_at_live else 'held'}; printed, not "
+        f"gated: the reference's catch-up runner, ROADMAP section 3)"
+        + (", then one more transfer of each tail sender to every node" if short_at_live else "")
+        + f"; every tail sender at sequence {want_seq} {caught_s:.3f} s after live; catchup_applied {applied} "
+        f"(the {n_tail} it missed), catchup_preverified {pre} ({pre / applied:.2f} x the applied: a payload "
+        f"counts in each session that checked it), "
+        f"catchup sessions {st['catchup_sessions']}; the verifier's queue_depth read nonzero in {skipped} of "
+        f"{len(depths)} /statusz polls while it caught up (the node counts no skipped verify_ahead slice); verify "
+        f"kernel launches since its RPC came up {launches}; every node's ledger equal to the replay; {card_line}")
+    return {"tail": n_tail, "rpc_up_s": rpc_s, "live_s": live_s, "states": states, "catchup_s": caught_s,
+            "short_at_live": short_at_live, "strict_live_held": not short_at_live, "nudges": n_nudge,
+            "catchup_applied": applied, "catchup_preverified": pre, "catchup_sessions": st["catchup_sessions"],
+            "queue_nonzero_polls": skipped, "polls": len(depths), "launches": launches,
+            "pushed_out": {str(i): v for i, v in pushed.items()}}
+
+
+async def wan_served_path(seed: int, card_line: str, kind: str, paced_s: float, broker_per: int,
+                          burst_per: int, tail_per: int) -> dict:
+    """15a and 15b: arm off and arm on, each on a net of its own started
+    together, a broker in front of each node 0 (arm on's with
+    ``--eager``); the arms one after the other, then 15b on arm on's net.
+    A failed gate of 15a fails the phase once both arms have printed."""
+    import signal
+    import tempfile
+
+    plan = wan_plan(seed, WAN_PACED_CLIENTS, WAN_BROKER_CLIENTS, WAN_BURST_CLIENTS)
+    arms, failures, rcs, brcs = {}, [], {}, {}
+    with tempfile.TemporaryDirectory(prefix="at2-phase15-") as workdir:
+        nets = {on: wan_net(on, kind, os.path.join(workdir, "on" if on else "off")) for on in (False, True)}
+        brokers: dict = {}
+
+        def stop(on: bool) -> None:
+            if on in brokers:
+                proc = brokers[on][1]
+                proc.send_signal(signal.SIGINT)
+                try:
+                    brcs[on] = proc.wait(timeout=60)
+                except subprocess.TimeoutExpired:
+                    proc.kill()
+                    brcs[on] = proc.wait()
+            rcs[on] = nets[on].stop()
+
+        try:
+            start_pair([nets[False], nets[True]], "wan node net (15a)")
+            for on in (False, True):
+                brokers[on] = start_broker(nets[on], nets[on].workdir, eager=on)
+            runs = {}
+            for on in (False, True):
+                label = f"wan node net (15a, arm {'on' if on else 'off'})"
+                log(f"{label}: {NET_NODES} `server run` processes, [verifier] kind = \"{kind}\", thresholds of "
+                    f"two peers, region hints {list(WAN_REGIONS)} on the [[nodes]] entries, "
+                    + ("[wan] overlap_ready, region_fanout, verify_ahead, eager_broker on, each node's own "
+                       "region; the broker with --eager" if on else "no [wan] table; the broker without --eager"))
+                runs[on] = await wan_drive(nets[on], brokers[on][0], plan, label, paced_s, broker_per, burst_per)
+                arms["on" if on else "off"] = await wan_collect(nets[on], brokers[on][0], runs[on], plan, kind, on,
+                                                                 card_line, failures)
+            stop(False)
+            off, on_ = arms["off"], arms["on"]
+            # overlap_ready on the wire and in the phase markers. Arm off
+            # has some of both too: a node whose own Echo comes after it
+            # has seen the echo quorum sends its Ready with it, and a Ready
+            # quorum can make a node Ready before its echo quorum
+            # (contagion), so arm on's must be above arm off's
+            share = {a: x["echo_ready_frames"] / max(x["echo_frames"], 1) for a, x in arms.items()}
+            if not (on_["echo_ready_frames"] > 0 and share["on"] > share["off"]):
+                failures.append(f"node 0's /capturez: {on_['echo_ready_frames']} of {on_['echo_frames']} Echo frames "
+                                f"carry their Ready with [wan] on, {off['echo_ready_frames']} of "
+                                f"{off['echo_frames']} off")
+            if not on_["ready_before_echo_quorum"] > off["ready_before_echo_quorum"]:
+                failures.append(f"Readies sent before their echo quorum: {on_['ready_before_echo_quorum']} of "
+                                f"{on_['overlap_spans']} spans with [wan] on, {off['ready_before_echo_quorum']} of "
+                                f"{off['overlap_spans']} off")
+            log(f"wan node net (15a): overlap_ready: {100 * share['on']:.1f}% of node 0's captured Echo frames "
+                f"carry their Ready with [wan] on, {100 * share['off']:.1f}% off; Readies sent before their echo "
+                f"quorum {on_['ready_before_echo_quorum']} of {on_['overlap_spans']} (transfer, node) spans on, "
+                f"{off['ready_before_echo_quorum']} of {off['overlap_spans']} off")
+            check(not failures, "phase 15a: " + "; ".join(failures))
+            on_run = runs[True]
+            paced = [[(1, *plan["seeds"][c])] + [a[:3] for a in on_run["acks"][c]] for c in range(len(plan["paced"]))]
+            rejoin = await rejoin_run(nets[True], plan, on_run["burst_transfers"], paced, broker_per, kind,
+                                      card_line, tail_per)
+        finally:
+            for on in (False, True):
+                if on not in rcs:
+                    stop(on)
+    for on in (False, True):
+        check(rcs[on] == [0] * NET_NODES, f"phase 15 (arm {'on' if on else 'off'}): servers exited with "
+              f"{rcs[on]} on SIGTERM")
+        check(brcs.get(on) == 0, f"phase 15 (arm {'on' if on else 'off'}): the broker exited with "
+              f"{brcs.get(on)} on SIGINT")
+    return {"wan_off": arms["off"], "wan_on": arms["on"], "rejoin": rejoin}
+
+
+async def membership_path(seed: int, card_line: str, kind: str = "cuda", n_clients: int = MEMBERSHIP_CLIENTS,
+                          per: int = MEMBERSHIP_PER) -> dict:
+    """15c: four in-process port nodes (``Service.start``) sharing one
+    verifier, each with ``[membership] admin_public`` and a 1 s grace, at
+    thresholds of every peer. A round of transfers commits on all four;
+    an admin-signed ``ConfigTx`` for epoch 1 (remove node 3, thresholds of
+    two peers) goes in at node 0 through ``_on_config_tx(None, tx)``; a
+    second round goes to nodes 0-2; once the grace is over, the same
+    ConfigTx again and one for epoch 5 go in at node 0; a third round
+    goes to nodes 0-2."""
+    from at2_node_tpu_torch.broadcast.messages import ConfigTx
+    from at2_node_tpu_torch.client import Client
+    from at2_node_tpu_torch.crypto.keys import SignKeyPair
+    from at2_node_tpu_torch.crypto.verifier import make_verifier
+    from at2_node_tpu_torch.node.config import MembershipConfig, VerifierConfig
+    from at2_node_tpu_torch.node.service import Service
+    from at2_node_tpu_torch.ops import cuda_verify
+    from at2_node_tpu_torch.tools._common import make_net_configs
+
+    label = "membership node net (15c)"
+    rng = np.random.default_rng(seed + 1503)
+    admin = SignKeyPair(rng.bytes(32))
+    cfgs = make_net_configs(NET_NODES, iter(free_ports(2 * NET_NODES)), seed=seed + 1504,
+                            verifier=VerifierConfig(kind=kind),
+                            membership=MembershipConfig(admin_public=admin.public.hex(), grace=MEMBERSHIP_GRACE_S))
+    verifier = (make_verifier("cuda", batch_size=256, max_delay=0.002) if kind == "cuda"
+                else make_verifier(kind))
+    await verifier.warmup()
+    services: list = []
+    clients = [SignKeyPair(rng.bytes(32)) for _ in range(n_clients)]
+    rounds = [more_transfers(rng, clients, 1 + k * per, per) for k in range(3)]
+    launches0 = cuda_verify.launches
+
+    async def commit_round(k: int, nodes: list) -> None:
+        """Round k, client c through node ``nodes[c mod len(nodes)]``; every
+        one of ``nodes`` commits it."""
+        want = {i: services[i].committed + n_clients * per for i in nodes}
+
+        async def one(c: int) -> None:
+            async with Client(f"http://{cfgs[nodes[c % len(nodes)]].rpc_address}") as conn:
+                await conn.send_asset_many(clients[c], rounds[k][c])
+
+        await asyncio.gather(*(one(c) for c in range(n_clients)))
+        t_end = time.perf_counter() + NET_DEADLINE_S
+        while any(services[i].committed < w for i, w in want.items()):
+            check(time.perf_counter() < t_end, f"{label}: round {k + 1} committed "
+                  f"{[services[i].committed for i in nodes]} on nodes {nodes}, want {list(want.values())}")
+            await asyncio.sleep(0.02)
+
+    async def until(cond, what: str, within: float) -> float:
+        t0 = time.perf_counter()
+        while not cond():
+            check(time.perf_counter() - t0 < within, f"{label}: {what} not within {within} s")
+            await asyncio.sleep(0.02)
+        return time.perf_counter() - t0
+
+    try:
+        for cfg in cfgs:
+            services.append(await Service.start(cfg, verifier=verifier))
+        await until(lambda: all(s.mesh.stats()["channels"] >= 2 * (NET_NODES - 1) for s in services),
+                    "the mesh connected", 60.0)
+        thresholds0 = [(s.broadcast.echo_threshold, s.broadcast.ready_threshold) for s in services]
+        await commit_round(0, list(range(NET_NODES)))
+        evicted = cfgs[3].sign_key.public.hex()
+        tx = ConfigTx.create(admin, 1, {"remove": [evicted], "echo_threshold": 2, "ready_threshold": 2,
+                                        "grace": MEMBERSHIP_GRACE_S})
+        t_tx = time.perf_counter()
+        services[0]._on_config_tx(None, tx)
+        applied_s = await until(lambda: all(s.membership.epoch == 1 for s in services),
+                                "every node at epoch 1", 10.0)
+        thresholds = [(s.broadcast.echo_threshold, s.broadcast.ready_threshold) for s in services]
+        check(thresholds == [(2, 2)] * NET_NODES, f"{label}: thresholds {thresholds} after epoch 1, not (2, 2)")
+        await commit_round(1, [0, 1, 2])
+        await until(lambda: all(services[i].membership.stats()["evicted_final"] == 1 for i in range(3)),
+                    "evicted_final 1 on nodes 0-2", MEMBERSHIP_GRACE_S + 10.0)
+        final_s = time.perf_counter() - t_tx
+        stats0 = services[0].membership.stats()
+        services[0]._on_config_tx(None, tx)  # the same epoch again: gossip echo, not counted
+        after_dup = services[0].membership.stats()
+        stale = ConfigTx.create(admin, 5, {"echo_threshold": 1, "ready_threshold": 1})
+        services[0]._on_config_tx(None, stale)
+        after_stale = services[0].membership.stats()
+        check(after_dup == stats0, f"{label}: epoch 1 again changed node 0's membership: {stats0} -> {after_dup}")
+        check(after_stale == {**stats0, "rejected": stats0["rejected"] + 1},
+              f"{label}: the epoch-5 ConfigTx was not counted rejected alone: {stats0} -> {after_stale}")
+        check((services[0].broadcast.echo_threshold, services[0].broadcast.ready_threshold) == (2, 2),
+              f"{label}: a stale ConfigTx moved node 0's thresholds")
+        await commit_round(2, [0, 1, 2])
+        ledgers = [await s.accounts.export_state() for s in services]
+        replay = replay_ledger([(kp.public, *t) for c, kp in enumerate(clients) for k in range(3)
+                                for t in rounds[k][c]])
+        for i in range(3):
+            check(ledgers[i] == replay, f"{label}: node {i}'s ledger differs from the replay")
+        launches = cuda_verify.launches - launches0
+        check(kind != "cuda" or launches > 0, f"{label}: the verify kernel never launched")
+        stats = [s.membership.stats() for s in services]
+        log(f"{label}: {NET_NODES} in-process nodes sharing one {type(verifier).__name__}, [membership] grace "
+            f"{MEMBERSHIP_GRACE_S} s, thresholds {thresholds0[0]} (every peer); round 1 ({n_clients} x {per}) "
+            f"committed on all {NET_NODES}; the admin's ConfigTx for epoch 1 (remove node 3, echo and ready "
+            f"thresholds 2) in at node 0: every node at epoch 1 {applied_s:.3f} s after it, thresholds "
+            f"{thresholds[0]} on every node; round 2 committed on nodes 0-2; evicted_final 1 on nodes 0-2 "
+            f"{final_s:.3f} s after the ConfigTx; epoch 1 again: node 0's membership unchanged (a duplicate "
+            f"is gossip echo, not rejected), epoch 5: rejected {after_stale['rejected']}, nothing else moved; "
+            f"round 3 committed on nodes 0-2, their ledgers equal to the replay (node 3 stopped at "
+            f"{services[3].committed} commits); membership stats {stats}; verify kernel launches {launches}; "
+            f"{card_line}")
+        return {"applied_s": applied_s, "evicted_final_s": final_s, "thresholds": thresholds[0],
+                "membership": stats, "launches": launches, "seconds": time.perf_counter() - t_tx}
+    finally:
+        for s in services:
+            await s.close()
+        await verifier.close()
+
+
+async def wan_path(seed: int, card_line: str, kind: str = "cuda", paced_s: float = WAN_PACED_S,
+                   broker_per: int = WAN_BROKER_PER, burst_per: int = WAN_BURST_PER,
+                   tail_per: int = WAN_TAIL_PER, m_clients: int = MEMBERSHIP_CLIENTS,
+                   m_per: int = MEMBERSHIP_PER) -> dict:
+    """Phase 15: the served ``[wan]`` levers off and on (15a), a node's
+    rejoin from its own ``[checkpoint]`` with ``verify_ahead`` (15b), a
+    ``[membership]`` epoch change (15c)."""
+    t15 = time.perf_counter()
+    out = await wan_served_path(seed, card_line, kind, paced_s, broker_per, burst_per, tail_per)
+    out["membership"] = await membership_path(seed, card_line, kind, m_clients, m_per)
+    off, on = out["wan_off"], out["wan_on"]
+    out["seconds"] = time.perf_counter() - t15
+    out["launches"] = off["launches"] + on["launches"] + out["rejoin"]["launches"] + out["membership"]["launches"]
+    log(f"wan node net (15): paced ack-to-commit p50/p99 {off['paced_p50_ms']:.1f} / {off['paced_p99_ms']:.1f} ms "
+        f"[wan] off, {on['paced_p50_ms']:.1f} / {on['paced_p99_ms']:.1f} ms on; broker tier "
+        f"{off['broker_p50_ms']:.1f} / {off['broker_p99_ms']:.1f} ms off, {on['broker_p50_ms']:.1f} / "
+        f"{on['broker_p99_ms']:.1f} ms on (--eager); burst {off['burst_tx_per_s']:,.0f} / "
+        f"{on['burst_tx_per_s']:,.0f} tx/s; node {REJOIN_NODE} live {out['rejoin']['live_s']:.3f} s after its "
+        f"restart; phase 15 took {out['seconds']:.1f} s (printed, not gated on); {card_line}")
+    return out
+
+
 def device_share(run: dict, by_lanes: dict) -> float:
     """Kernel time on the card over the run's wall time, from phase 3's
     per-bucket kernel times (device clock) and the run's flush buckets."""
@@ -5181,6 +5876,8 @@ def main() -> None:
     lap("13")
     overload_ab = asyncio.run(overload_ab_path(args.seed, card))
     lap("14")
+    wan = asyncio.run(wan_path(args.seed, card))
+    lap("15")
     log(f"phase seconds (in the order they ran): {json.dumps(laps)}, {sum(laps.values()):.1f} in all; {card}")
 
     from at2_node_tpu_torch.ops import cuda_verify
@@ -5206,7 +5903,7 @@ def main() -> None:
         "source": "at2_node_tpu_torch/csrc/ed25519_verify.cu",
         "replaces": "at2_node_tpu/ops/pallas_verify.py:232",
         "launches": (mp["stress"]["launches"] + tool_launches["ed25519_verify"] + overload["launches"]
-                     + overload_ab["launches"]),
+                     + overload_ab["launches"] + wan["launches"]),
         "mismatches": kp["mismatches"],
         "max_abs_err": kp["max_abs_err"],
         "lanes": 65536,
@@ -5224,7 +5921,10 @@ def main() -> None:
                                    for arm in ("off", "on")},
                       "overload_ab": {"calibration": [r["launches"] for r in overload_ab["calibration"]["nets"]],
                                       **{f"{r['workload']}/{r['arm']}": r["kernel_launches"]
-                                         for r in overload_ab["rows"]}}},
+                                         for r in overload_ab["rows"]}},
+                      "wan": {"off": [p["launches"] for p in wan["wan_off"]["nodes"]],
+                              "on": [p["launches"] for p in wan["wan_on"]["nodes"]],
+                              "rejoin": wan["rejoin"]["launches"], "membership": wan["membership"]["launches"]}},
         "card": card,
     }]
     # the RLC kernels' main path: phase 7's node net (the processes' counts)
@@ -5300,6 +6000,7 @@ def main() -> None:
     print(json.dumps({"sim": sim}))
     print(json.dumps({"overload": overload}))
     print(json.dumps({"overload_ab": {k: overload_ab[k] for k in ("rows", "bars", "calibration", "path")}}))
+    print(json.dumps({"wan": wan}))
     for row in tools:
         print(json.dumps(row))
     print(json.dumps({"kernels": kernels}))

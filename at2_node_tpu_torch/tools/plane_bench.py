@@ -129,9 +129,12 @@ class _TrustAllVerifier:
 
 async def run(
     nodes: int, txs: int, verifier: str, timeout: float, batch: int = 0,
-    obs: bool = True, profile: bool = False, linger: float = 0.0,
+    obs: bool = True, profile: bool = False, hold_until=None,
     shards: int = 1, executor: str = "thread",
 ) -> dict:
+    """One in-process firehose. ``hold_until``, when given, is a predicate
+    over node 0's ``snapshot_stats()``: after the commits the fleet stays
+    up until it holds or ``timeout`` (from the first send) is spent."""
     plane_only = verifier == "plane-only"
     cfgs = make_net_configs(
         nodes,
@@ -207,10 +210,12 @@ async def run(
                 timed_out = True
                 break
         dt = time.perf_counter() - t0
-        if linger:
-            # keep the fleet alive past periodic maintenance (slot GC
-            # fires every GC_INTERVAL=5s) so those phase counters tick
-            await asyncio.sleep(linger)
+        # keep the fleet alive past periodic maintenance (slot GC fires
+        # every GC_INTERVAL) until the caller's counters have ticked
+        while hold_until is not None and not hold_until(services[0].snapshot_stats()):
+            if time.perf_counter() - t0 > timeout:
+                break
+            await asyncio.sleep(0.1)
         prof = None
         if profile and obs:
             services[0].sampler.stop()
@@ -414,9 +419,25 @@ def bank_obs_row(row: dict, bank_dir: str | None = None) -> None:
 # every phase account a batched run can exercise under any verifier:
 # the six plane leaves (entry_registry needs --batch >= 1), the
 # per-worker plane total, the commit tail, and slot GC (the smoke run
-# lingers past GC_INTERVAL=5s so it ticks). verifier_flush is the
-# CudaBatchVerifier's account and stays zero under the cpu verifier.
+# stays up until a GC pass, every GC_INTERVAL, has ticked it).
+# verifier_flush is the CudaBatchVerifier's account and stays zero under
+# the cpu verifier.
 _SMOKE_PHASES = PLANE_LEAF_PHASES + ("plane_total", "commit_tail", "slot_gc")
+
+
+def _zero_phases(stats: dict) -> list:
+    """The ``_SMOKE_PHASES`` whose counter has not ticked."""
+    return [p for p in _SMOKE_PHASES if not stats.get(f"phase_{p}_ns", 0)]
+
+
+def _shard_zero_phases(stats: dict, shards: int) -> list:
+    """The plane leaf phases that ticked in no shard worker."""
+    return [
+        p for p in PLANE_LEAF_PHASES
+        if not any(
+            stats.get(f"phase_{p}_shard{k}_ns", 0) for k in range(shards)
+        )
+    ]
 
 
 def smoke_profile(
@@ -433,21 +454,25 @@ def smoke_profile(
     plane leaf phase must have ticked inside SOME worker (the firehose
     has one origin key, so one shard carries the traffic — the check is
     any-shard per phase, not every-shard)."""
+    proc = shards > 1 and executor == "process"
+
+    def ticked(stats: dict) -> bool:
+        return not _zero_phases(stats) and not (
+            proc and _shard_zero_phases(stats, shards)
+        )
+
+    # the fleet stays up until every counter has ticked (slot GC's after
+    # a GC pass, a worker's once its obs records crossed), or the timeout
     res = asyncio.run(
         run(nodes, txs, verifier, timeout, batch=16, obs=True,
-            profile=True, linger=5.5, shards=shards, executor=executor)
+            profile=True, hold_until=ticked, shards=shards,
+            executor=executor)
     )
     stats = res["node0_stats"]
-    zero = [p for p in _SMOKE_PHASES if not stats.get(f"phase_{p}_ns", 0)]
+    zero = _zero_phases(stats)
     prof = res["profiler"] or {}
-    proc = shards > 1 and executor == "process"
     worker_frames = prof.get("worker_folded_frames", 0)
-    shard_zero = [
-        p for p in PLANE_LEAF_PHASES
-        if not any(
-            stats.get(f"phase_{p}_shard{k}_ns", 0) for k in range(shards)
-        )
-    ] if proc else []
+    shard_zero = _shard_zero_phases(stats, shards) if proc else []
     ok = (
         bool(prof.get("folded_lines"))
         and not zero

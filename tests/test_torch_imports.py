@@ -29,6 +29,7 @@ def _source_files():
             if name.endswith((".py", ".cu", ".cuh", ".cpp")):
                 yield os.path.join(root, name)
     yield os.path.join(REPO, "chip_smoke.py")
+    yield os.path.join(REPO, "chip_loop.py")
 
 
 def test_sources_never_import_jax_or_the_jax_package():
@@ -44,7 +45,7 @@ def test_sources_never_import_jax_or_the_jax_package():
     assert not offenders, offenders
 
 
-@pytest.mark.parametrize("probe", ["at2_node_tpu_torch", "chip_smoke"])
+@pytest.mark.parametrize("probe", ["at2_node_tpu_torch", "chip_smoke", "chip_loop"])
 def test_importing_the_port_loads_no_jax(probe):
     code = (
         "import importlib, pkgutil, sys\n"

@@ -10,7 +10,8 @@
   executor's per-shard keys) give the reference's decomposition, phase
   table and top serial term; a live port node profiles under load;
 * the profiler smoke: 3 nodes, 200 transactions, the ``thread`` executor
-  at 2 shards, ``--verifier cpu``: every phase counter ticks.
+  at 2 shards, ``--verifier cpu``: every phase counter ticks, slot GC's
+  too when its pass comes 8 s after the start.
 
 Every key is seeded with numpy; every comparison is exact."""
 
@@ -190,16 +191,32 @@ def test_canned_dumps_decompose_and_render_as_the_reference(shards):
 
 
 async def test_live_node_profiles_under_load():
+    """The 1.0 s capture opens once the node is committing, and rounds of
+    4 x 64 fresh transfers (seeds 64, 65, ...) go on until it has closed,
+    so the plane works inside the window however slow the host is."""
     cfg = _net_configs(1, seed=63)[0]
     service = await Service.start(cfg)
+    done = asyncio.Event()
+
+    async def load() -> int:
+        sent, seed = 0, 64
+        while not done.is_set():
+            sent += await _send(cfg, seed=seed, per_client=64)
+            seed += 1
+        return sent
+
     try:
         host, port = cfg.rpc_address.rsplit(":", 1)
-        profile = asyncio.ensure_future(profile_collect.run([(host, int(port))], 1.0))
-        sent = await _send(cfg, seed=64, per_client=64)
-        results = await profile
+        sender = asyncio.ensure_future(load())
+        while not service.committed and not sender.done():
+            await asyncio.sleep(0.01)
+        results = await profile_collect.run([(host, int(port))], 1.0)
+        done.set()
+        sent = await sender
         while service.committed < sent:
             await asyncio.sleep(0.05)
     finally:
+        done.set()
         await service.close()
     (addr, rec), = results
     assert addr == cfg.rpc_address and not isinstance(rec, Exception)
@@ -208,6 +225,18 @@ async def test_live_node_profiles_under_load():
     buf = io.StringIO()
     assert profile_collect.render(results, 1.0, 0.0, out=buf) == 0
     assert "top serial term: " in buf.getvalue()
+
+
+def test_smoke_profile_waits_for_the_slot_gc_pass(monkeypatch):
+    """Slot GC every 8 s, seconds after the commits: the fleet stays up
+    until the pass has ticked ``slot_gc``."""
+    from at2_node_tpu_torch.broadcast import stack
+
+    monkeypatch.setattr(stack, "GC_INTERVAL", 8.0)
+    with contextlib.redirect_stderr(io.StringIO()):
+        res = plane_bench.smoke_profile(3, 200, 60.0, verifier="cpu")
+    assert res["ok"] and res["zero_phases"] == [], res
+    assert res["phase_ns"]["slot_gc"] > 0 and res["executor"] == "loop"
 
 
 def test_smoke_profile_thread_shards_tick_every_counter(tmp_path):

@@ -54,7 +54,7 @@ async def test_chip_smoke_phase14_runs_with_the_cpu_kind(tmp_path, capsys, refer
         assert want <= set(r), want - set(r)
         assert r["card"] == "cpu" and r["kernel_launches"] == [0, 0, 0, 0]
         assert r["offered"] == r["n_tx"] == chip_smoke.ab_n_tx(100.0, 0.9 if r["workload"] == "flash_crowd"
-                                                              else 0.68, 3.0)
+                                                              else 0.68, 3.0 * chip_smoke.AB_DEPTH[r["workload"]])
         assert r["expected"] + r["parked"] <= r["acked"] == r["offered"] - r["refused"]
         assert r["lateness_p99_s"] < chip_smoke.AB_LATENESS_P99_S
         assert r["committed_steady"] > 0 and r["stamped_on"].get(4, 0) > 0

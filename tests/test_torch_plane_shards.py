@@ -570,7 +570,9 @@ async def test_process_executor_delivers_then_survives_worker_crash():
 async def test_process_rings_spill_instead_of_dropping():
     """Rings of 8 slots under three Services: a burst overflows the
     protocol rings, the overflow waits in its producer's backlog, and
-    every payload commits on every node with no record dropped."""
+    every payload commits on every node with no record dropped. Messages
+    still arrive after the commits (the late Readies), so every backlog
+    is read once the planes have drained it."""
     services = [await Service.start(c)
                 for c in _net_configs(3, 23, shards=2, executor="process", ring_slots=8)]
     try:
@@ -580,6 +582,8 @@ async def test_process_rings_spill_instead_of_dropping():
                 await services[0].broadcast.broadcast(_payload(kp, seq))
         await _wait(lambda: all(s.committed >= 120 for s in services), "commits through 8-slot rings")
         assert sum(r.spilled for r in services[0].broadcast._executor.actions) > 0
+        await _wait(lambda: all(s.broadcast.plane_info()["actions_backlog"] == 0 for s in services),
+                    "the actions backlogs drained")
         for svc in services:
             assert svc.broadcast.effects_dropped == 0
             assert svc.broadcast.plane_info()["actions_backlog"] == 0

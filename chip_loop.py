@@ -2,18 +2,16 @@
 """Run host-heavy phases of ``chip_smoke.py`` again and again in one call on
 the card, to tell a fault of the port from a stall of the host.
 
-    python3 chip_loop.py [--checkout DIR] [--reps N] [--seed S] PHASE...
+    python3 chip_loop.py [--reps N] [--seed S] PHASE...
 
 PHASE is ``12c`` (plane_bench's three smokes), ``13`` or ``14``. The phases
 run in the order given, each ``--reps`` times, after phase 1, the build and
-phase 3 at 256 lanes (phase 13 reads that time). ``--checkout`` runs the
-``chip_smoke.py`` of another tree (e.g. a ``git archive`` of the parent
-unpacked into ``scratch_chip/parent``). A repetition whose phase raises is
-recorded as missed and the loop goes on; a stall sentinel thread records
-the longest overshoot of its 50 ms sleeps in each repetition, beside the
-seconds each node took to bind its RPC port. One line a repetition starts
-``LOOP``; the rows go to ``chiprun_out/chip_loop.json``; the exit code is
-1 if any repetition missed.
+phase 3 at 256 lanes (phase 13 reads that time). A repetition whose phase
+raises is recorded as missed and the loop goes on; ``chip_smoke``'s stall
+sentinel gives the longest overshoot of its 50 ms sleeps in each
+repetition. One line a repetition starts ``LOOP``; the rows go to
+``chiprun_out/chip_loop.json``; the exit code is 1 if any repetition
+missed. To loop another tree, run that tree's own ``chip_loop.py``.
 """
 
 import argparse
@@ -21,64 +19,31 @@ import asyncio
 import json
 import os
 import sys
-import threading
 import time
-
-
-class Sentinel(threading.Thread):
-    """Sleeps 50 ms again and again; the longest overshoot since reset."""
-
-    def __init__(self) -> None:
-        super().__init__(daemon=True)
-        self.worst, self.at = 0.0, 0.0
-
-    def reset(self) -> None:
-        self.worst, self.at = 0.0, 0.0
-
-    def run(self) -> None:
-        while True:
-            t = time.perf_counter()
-            time.sleep(0.05)
-            over = time.perf_counter() - t - 0.05
-            if over > self.worst:
-                self.worst, self.at = over, time.perf_counter()
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("phases", nargs="+", choices=("12c", "13", "14"))
-    ap.add_argument("--checkout", default=os.path.dirname(os.path.abspath(__file__)))
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--seed", type=int, default=2026)
     args = ap.parse_args()
-    out_path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out", "chip_loop.json")
-    checkout = os.path.abspath(args.checkout)
-    sys.path.insert(0, checkout)
-    os.chdir(checkout)
+    here = os.path.dirname(os.path.abspath(__file__))
+    out_path = os.path.join(here, "chiprun_out", "chip_loop.json")
+    sys.path.insert(0, here)
     import numpy as np
     import torch
 
     import chip_smoke as cs
     from at2_node_tpu_torch.tools import plane_bench as pb
 
-    sentinel = Sentinel()
-    sentinel.start()
+    cs.SENTINEL = cs.StallSentinel()
     card = cs.device_report(torch)
     cs.build_all()
     cs.KERNEL_LANES = (256,)
     kp = cs.kernel_vs_plain(torch, cs.Material(args.seed), np.random.default_rng(args.seed))
     times = {"ed25519_verify": kp["by_lanes"]}
     name = torch.cuda.get_device_name(0)
-
-    binds = []
-    wait_rpc = cs.ServerNet.wait_rpc
-
-    def timed_wait_rpc(net, i, t_end):
-        t = time.perf_counter()
-        wait_rpc(net, i, t_end)
-        binds.append(round(time.perf_counter() - t, 2))
-
-    cs.ServerNet.wait_rpc = timed_wait_rpc
 
     def smokes():
         for shards, executor in ((1, "thread"), (2, "thread"), (2, "process")):
@@ -95,8 +60,7 @@ def main() -> int:
     rows = []
     for phase in args.phases:
         for rep in range(args.reps):
-            sentinel.reset()
-            binds.clear()
+            cs.SENTINEL.take()
             t0 = time.perf_counter()
             error = ""
             try:
@@ -104,16 +68,13 @@ def main() -> int:
             except Exception as exc:  # a miss is recorded and the loop goes on
                 error = str(exc)[-4000:]
             row = {"phase": phase, "rep": rep, "held": not error, "seconds": round(time.perf_counter() - t0, 1),
-                   "sentinel_max_ms": round(1e3 * sentinel.worst, 1),
-                   "sentinel_at_s": round(sentinel.at - t0, 1) if sentinel.worst else None,
-                   "rpc_bind_s": list(binds), "error": error, "card": card}
+                   "sentinel_max_ms": round(1e3 * cs.SENTINEL.take(), 1), "error": error, "card": card}
             rows.append(row)
             cs.log(f"LOOP {phase} #{rep}: {'held' if row['held'] else 'MISSED'} {row['seconds']} s, sentinel "
-                   f"max {row['sentinel_max_ms']} ms at +{row['sentinel_at_s']} s; RPC binds {binds}"
-                   + (f"; {error[-1500:]}" if error else ""))
+                   f"max {row['sentinel_max_ms']} ms" + (f"; {error[-1500:]}" if error else ""))
             os.makedirs(os.path.dirname(out_path), exist_ok=True)
             with open(out_path, "w") as f:
-                json.dump({"checkout": checkout, "rows": rows}, f, indent=1)
+                json.dump({"rows": rows}, f, indent=1)
     return 0 if all(r["held"] for r in rows) else 1
 
 

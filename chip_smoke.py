@@ -515,7 +515,6 @@ def check(cond: bool, what: str) -> None:
     if not cond:
         if SENTINEL is not None:
             what += f" ({SENTINEL.reading()} in this phase, load average {os.getloadavg()})"
-            log(f"FAILED: {what}")
         raise RuntimeError(f"chip_smoke: {what}")
 
 
@@ -930,31 +929,35 @@ def rlc_vs_plain(torch, mat: Material, rng) -> dict:
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-            p_eq, p_codes = agg.rlc_graph_packed_plain(dev) if plain else (eq, codes)
+            p_eq, p_codes = agg.rlc_graph_packed_plain(dev) if plain else (None, None)
             end.record()
             fold_plain = {name: agg.is_identity(agg.tree_reduce_points(w.points().to(torch.int64)))
                           for name, w in works.items()}
             torch.cuda.synchronize()
             plain_ms = start.elapsed_time(end)
             eq, codes = bool(eq.item()), codes.cpu().numpy()
-            p_eq, p_codes = (bool(p_eq.item()), p_codes.cpu().numpy()) if plain else (eq, want_codes)
+            if plain:
+                p_eq, p_codes = bool(p_eq.item()), p_codes.cpu().numpy()
             k1 = np.unpackbits(bits.cpu().numpy(), count=n).astype(bool)
             composed = (codes == 1) if eq and not (codes == 2).any() else k1
             bad = {
-                "lanes": int((codes != p_codes).sum() + (codes != want_codes).sum()),
-                "fold": int(eq != p_eq) + int(eq != (not tamper)),
+                "lanes": int((codes != want_codes).sum()) + (int((codes != p_codes).sum()) if plain else 0),
+                "fold": int(eq != (not tamper)) + (int(eq != p_eq) if plain else 0),
                 "composed": int((composed != k1).sum() + (k1 != want_ok).sum()),
             }
             for name, out in outs.items():
                 apart = out.cpu().numpy()
                 a_eq, a_codes = bool(apart[n]), apart[:n]
                 a_composed = (a_codes == 1) if a_eq and not (a_codes == 2).any() else k1
-                bad["lanes"] += int((a_codes != p_codes).sum() + (a_codes != want_codes).sum())
-                bad["fold"] += int(a_eq != p_eq) + int(bool(fold_plain[name].item()) != a_eq)
+                bad["lanes"] += int((a_codes != want_codes).sum())
+                bad["fold"] += int(a_eq != (not tamper)) + int(bool(fold_plain[name].item()) != a_eq)
                 bad["composed"] += int((a_composed != k1).sum())
-                max_err["ed25519_rlc_lanes"] = max(max_err["ed25519_rlc_lanes"],
-                                                   int(np.abs(a_codes.astype(int) - p_codes.astype(int)).max()))
-                max_err["ed25519_rlc_fold"] = max(max_err["ed25519_rlc_fold"], abs(int(a_eq) - int(p_eq)))
+                if plain:  # max_abs_err counts only the plain version's runs
+                    bad["lanes"] += int((a_codes != p_codes).sum())
+                    bad["fold"] += int(a_eq != p_eq)
+                    max_err["ed25519_rlc_lanes"] = max(max_err["ed25519_rlc_lanes"],
+                                                       int(np.abs(a_codes.astype(int) - p_codes.astype(int)).max()))
+                    max_err["ed25519_rlc_fold"] = max(max_err["ed25519_rlc_fold"], abs(int(a_eq) - int(p_eq)))
             mism.update(bad)
             log(f"rlc vs plain {n:6d} lanes ({kind}): eq_ok {eq}, codes 0/1/2 "
                 f"{[int((codes == c).sum()) for c in range(3)]}, both layouts apart and "
@@ -2729,20 +2732,15 @@ def finality_net(kind: str, workdir: str) -> ServerNet:
     return ServerNet(kind, workdir, tables=lambda i: "[finality]\nenabled = true\n")
 
 
-async def finality_broker_path(seed: int, by_lanes, card, card_line: str, kind: str = "cuda",
+async def finality_broker_path(seed: int, by_lanes, card, card_line: str, net: ServerNet, kind: str = "cuda",
                                n_clients: int = NET_CLIENTS, per_batched: int = NET_PER_CLIENT_BATCHED,
                                broker_per_client: int = BROKER_PER_CLIENT,
-                               n_tampered: int = NODE_TAMPERED, capture_to: str | None = None,
-                               net: ServerNet | None = None) -> dict:
-    """Phase 10: phase 6's net with ``[finality] enabled`` (10a: run A,
-    then the certificates), then a broker in front of node 0 (10b). With
-    ``capture_to``, node 0's ``/capturez`` is written there at the end of
-    10a, for phase 11c to replay in the sim. ``net``: such a net already
-    started (``finality_net``), else one is started here; either way it is
-    stopped here."""
-    import contextlib
-    import tempfile
-
+                               n_tampered: int = NODE_TAMPERED, capture_to: str | None = None) -> dict:
+    """Phase 10 on ``net``, a started ``finality_net`` (phase 6's net with
+    ``[finality] enabled``; stopped here): 10a, run A, then the
+    certificates; 10b, a broker in front of node 0. With ``capture_to``,
+    node 0's ``/capturez`` is written there at the end of 10a, for phase
+    11c to replay in the sim."""
     from at2_node_tpu_torch.client import Client
     from at2_node_tpu_torch.finality import LightVerifier
     from at2_node_tpu_torch.tools.trace_collect import stitch
@@ -2751,125 +2749,120 @@ async def finality_broker_path(seed: int, by_lanes, card, card_line: str, kind: 
     clients, run_a, _, _ = node_traffic(rng, n_clients, per_batched, NET_PER_CLIENT_PER_TX, NODE_TAMPERED)
     rng = np.random.default_rng(seed + 10)
     out = {}
-    with contextlib.ExitStack() as stack:
-        broker_proc = None
-        t0 = time.perf_counter()
-        try:
-            if net is None:
-                net = finality_net(kind, stack.enter_context(tempfile.TemporaryDirectory(prefix="at2-phase10-")))
-                net.start(deadline_s=180.0)
-            workdir = net.workdir
-            keys = node_sign_keys(net)
-            label = "finality node net (10a, SendAssetBatch)"
-            log(f"{label}: {net.n} `server run` processes, [finality] enabled = true, audit_every 256 "
-                f"(the default), up and meshed {time.perf_counter() - t0:.1f} s after this phase began")
-            run = await node_run(net, label, clients, run_a, True, {}, per_batched, NET_DEADLINE_S)
-            # a wallet's light client: the four genesis sign keys, any
-            # f + 1 = 2 valid co-signatures
-            light = LightVerifier(keys, total=net.n)
-            t_final = time.perf_counter()
+    broker_proc = None
+    try:
+        workdir = net.workdir
+        keys = node_sign_keys(net)
+        label = "finality node net (10a, SendAssetBatch)"
+        log(f"{label}: {net.n} `server run` processes, [finality] enabled = true, audit_every 256 "
+            f"(the default)")
+        run = await node_run(net, label, clients, run_a, True, {}, per_batched, NET_DEADLINE_S)
+        # a wallet's light client: the four genesis sign keys, any
+        # f + 1 = 2 valid co-signatures
+        light = LightVerifier(keys, total=net.n)
+        t_final = time.perf_counter()
 
-            async def wait_final():
-                async with Client(f"http://127.0.0.1:{net.rpc_ports[1]}") as conn:
-                    cert = await conn.wait_final(clients[0].public, per_batched, verifier=light,
-                                                 timeout_s=WAIT_FINAL_S)
-                    _, _, frontier, _ = await conn.get_certificates()
-                return cert, frontier, time.perf_counter() - t_final
+        async def wait_final():
+            async with Client(f"http://127.0.0.1:{net.rpc_ports[1]}") as conn:
+                cert = await conn.wait_final(clients[0].public, per_batched, verifier=light,
+                                             timeout_s=WAIT_FINAL_S)
+                _, _, frontier, _ = await conn.get_certificates()
+            return cert, frontier, time.perf_counter() - t_final
 
-            (cert, frontier, final_s), lag = await asyncio.gather(
-                wait_final(), asyncio.to_thread(certificate_lag, net, run["t_last"], label))
-            check(cert.commits >= run["transfers"],
-                  f"{label}: wait_final returned a certificate at {cert.commits} commits")
-            res = node_checks(net, run, by_lanes, card, kind, Counter())
-            await check_replay(net, clients, run_a)
-            fin = finality_checks(net, keys, rng, label)
-            res.update(certificate_lag_s=lag, wait_final_s=final_s, finality=fin)
-            log(f"{label}: {res['tx_per_s']:,.0f} tx/s committed with [finality] enabled; certificate "
-                f"lag (last commit to the certificate covering it) {[round(x, 3) for x in lag]} s a node; "
-                f"chains of {fin['chain_len']} certificates, the newest at {fin['commits']} commits with "
-                f"{fin['signers']} signers, one preimage on all {net.n} nodes, verified by an f+1 and a "
-                f"full light client and refused with one co-signature byte flipped; Client.wait_final "
-                f"through node 1 returned a certificate at {cert.commits} commits (frontier {frontier}) "
-                f"in {final_s:.3f} s; verify kernel launches a node {[p['launches'] for p in res['nodes']]}; "
-                f"{card_line}")
-            out["net_finality"] = res
-            if capture_to is not None:
-                capture = net.get(0, "/capturez")
-                with open(capture_to, "w") as f:
-                    f.write(capture)
-                log(f"{label}: node 0's /capturez ({len(json.loads(capture)['records'])} records, "
-                    f"{len(capture):,} bytes) written for phase 11c")
+        (cert, frontier, final_s), lag = await asyncio.gather(
+            wait_final(), asyncio.to_thread(certificate_lag, net, run["t_last"], label))
+        check(cert.commits >= run["transfers"],
+              f"{label}: wait_final returned a certificate at {cert.commits} commits")
+        res = node_checks(net, run, by_lanes, card, kind, Counter())
+        await check_replay(net, clients, run_a)
+        fin = finality_checks(net, keys, rng, label)
+        res.update(certificate_lag_s=lag, wait_final_s=final_s, finality=fin)
+        log(f"{label}: {res['tx_per_s']:,.0f} tx/s committed with [finality] enabled; certificate "
+            f"lag (last commit to the certificate covering it) {[round(x, 3) for x in lag]} s a node; "
+            f"chains of {fin['chain_len']} certificates, the newest at {fin['commits']} commits with "
+            f"{fin['signers']} signers, one preimage on all {net.n} nodes, verified by an f+1 and a "
+            f"full light client and refused with one co-signature byte flipped; Client.wait_final "
+            f"through node 1 returned a certificate at {cert.commits} commits (frontier {frontier}) "
+            f"in {final_s:.3f} s; verify kernel launches a node {[p['launches'] for p in res['nodes']]}; "
+            f"{card_line}")
+        out["net_finality"] = res
+        if capture_to is not None:
+            capture = net.get(0, "/capturez")
+            with open(capture_to, "w") as f:
+                f.write(capture)
+            log(f"{label}: node 0's /capturez ({len(json.loads(capture)['records'])} records, "
+                f"{len(capture):,} bytes) written for phase 11c")
 
-            label = "broker node net (10b, loadgen --broker)"
-            broker, broker_proc = start_broker(net, workdir)
-            b = await broker_run(net, broker, seed + 11, rng, n_clients, broker_per_client, n_tampered)
-            lag_b = certificate_lag(net, b["t_last"], label)
-            check(b["rejected"] == n_tampered,
-                  f"{label}: node 0 refused {b['rejected']} of {n_tampered} tampered transfers")
-            await check_sequences(net, b["clients"], broker_per_client)
-            await check_replay(net, b["clients"], [[(seq, kp.public, 1) for seq in
-                                                   range(1, broker_per_client + 1)] for kp in b["clients"]])
-            await check_replay(net, clients, run_a)
-            k1 = [launches_since(net, i, b["before"][i], label) for i in range(net.n)]
-            st0, st = b["before"][0]["stats"], net.stats(0)
-            distilled = st["distilled_batches_rx"] - st0["distilled_batches_rx"]
-            check(distilled > 0, f"{label}: node 0 took no distilled batch")
-            bstat = http_json(broker, "/statusz")
-            health = http_json(broker, "/healthz")
-            check(bstat["stats"]["broker_entries_tx"] == b["transfers"] + n_tampered,
-                  f"{label}: the broker forwarded {bstat['stats']['broker_entries_tx']} entries, "
-                  f"not {b['transfers'] + n_tampered}")
-            check(health["role"] == "broker" and health["status"] == "ok", f"{label}: broker /healthz {health}")
-            dumps = [json.loads(net.get(i, "/tracez")) for i in range(net.n)] + [http_json(broker, "/tracez")]
-            stitched = stitch(dumps)
-            check(stitched["coverage"]["with_broker"] >= 1,
-                  f"{label}: no transfer stitched across the broker hop: {stitched['coverage']}")
-            fin_b = finality_checks(net, keys, rng, label)
-            top = subprocess.run(
-                [sys.executable, "-m", "at2_node_tpu_torch.tools.top", "--once", "--no-clear",
-                 "--cert-lag-deadline", "0", *[f"127.0.0.1:{p}" for p in net.rpc_ports], broker],
-                capture_output=True, text=True, env=checkout_env(), timeout=120)
-            check(top.returncode == 0 and "final" in top.stdout,
-                  f"{label}: top.py --once exited {top.returncode}: {top.stdout[-2000:]} {top.stderr[-2000:]}")
-            hop = stitched.get("broker_hop", {}).get("segments", {})
-            log(f"{label}: {b['transfers']} transfers from {n_clients} clients through the broker "
-                f"(--max-entries {BROKER_MAX_ENTRIES}) committed on all {net.n} nodes in "
-                f"{b['wall_s']:.3f} s = {b['tx_per_s']:,.0f} tx/s (loadgen's own window, after its "
-                f"directory warm-up, to node 0 through the broker: {b['loadgen_tx_per_s']:,.0f} tx/s); "
-                f"node 0 took {distilled} distilled batches and refused the {n_tampered} tampered "
-                f"transfers; verify kernel launches a node {[x['launches'] for x in k1]} (= batches "
-                f"{[x['batches'] for x in k1]}); the broker forwarded {bstat['stats']['broker_entries_tx']} "
-                f"entries in {bstat['stats']['broker_batches_tx']} frames; {stitched['coverage']['with_broker']} "
-                f"transfers stitched across the broker hop; certificate lag {[round(x, 3) for x in lag_b]} s "
-                f"a node; {card_line}")
-            log(f"{label}: broker hop segments {json.dumps(hop, sort_keys=True)}")
-            log(f"{label}: top.py --once exited 0:")
-            for line in top.stdout.rstrip().splitlines():
-                log("  " + line)
-            out["net_broker"] = {
-                "launches": sum(x["launches"] for x in k1), "tx_per_s": b["tx_per_s"],
-                "wall_s": b["wall_s"], "transfers": b["transfers"],
-                "loadgen_tx_per_s": b["loadgen_tx_per_s"], "distilled_batches": distilled,
-                "rejected": b["rejected"], "nodes": k1, "certificate_lag_s": lag_b,
-                "broker_entries_tx": bstat["stats"]["broker_entries_tx"],
-                "broker_batches_tx": bstat["stats"]["broker_batches_tx"],
-                "with_broker": stitched["coverage"]["with_broker"], "finality": fin_b,
-            }
-        finally:
-            brc = None
-            if broker_proc is not None:
-                import signal
+        label = "broker node net (10b, loadgen --broker)"
+        broker, broker_proc = start_broker(net, workdir)
+        b = await broker_run(net, broker, seed + 11, rng, n_clients, broker_per_client, n_tampered)
+        lag_b = certificate_lag(net, b["t_last"], label)
+        check(b["rejected"] == n_tampered,
+              f"{label}: node 0 refused {b['rejected']} of {n_tampered} tampered transfers")
+        await check_sequences(net, b["clients"], broker_per_client)
+        await check_replay(net, b["clients"], [[(seq, kp.public, 1) for seq in
+                                               range(1, broker_per_client + 1)] for kp in b["clients"]])
+        await check_replay(net, clients, run_a)
+        k1 = [launches_since(net, i, b["before"][i], label) for i in range(net.n)]
+        st0, st = b["before"][0]["stats"], net.stats(0)
+        distilled = st["distilled_batches_rx"] - st0["distilled_batches_rx"]
+        check(distilled > 0, f"{label}: node 0 took no distilled batch")
+        bstat = http_json(broker, "/statusz")
+        health = http_json(broker, "/healthz")
+        check(bstat["stats"]["broker_entries_tx"] == b["transfers"] + n_tampered,
+              f"{label}: the broker forwarded {bstat['stats']['broker_entries_tx']} entries, "
+              f"not {b['transfers'] + n_tampered}")
+        check(health["role"] == "broker" and health["status"] == "ok", f"{label}: broker /healthz {health}")
+        dumps = [json.loads(net.get(i, "/tracez")) for i in range(net.n)] + [http_json(broker, "/tracez")]
+        stitched = stitch(dumps)
+        check(stitched["coverage"]["with_broker"] >= 1,
+              f"{label}: no transfer stitched across the broker hop: {stitched['coverage']}")
+        fin_b = finality_checks(net, keys, rng, label)
+        top = subprocess.run(
+            [sys.executable, "-m", "at2_node_tpu_torch.tools.top", "--once", "--no-clear",
+             "--cert-lag-deadline", "0", *[f"127.0.0.1:{p}" for p in net.rpc_ports], broker],
+            capture_output=True, text=True, env=checkout_env(), timeout=120)
+        check(top.returncode == 0 and "final" in top.stdout,
+              f"{label}: top.py --once exited {top.returncode}: {top.stdout[-2000:]} {top.stderr[-2000:]}")
+        hop = stitched.get("broker_hop", {}).get("segments", {})
+        log(f"{label}: {b['transfers']} transfers from {n_clients} clients through the broker "
+            f"(--max-entries {BROKER_MAX_ENTRIES}) committed on all {net.n} nodes in "
+            f"{b['wall_s']:.3f} s = {b['tx_per_s']:,.0f} tx/s (loadgen's own window, after its "
+            f"directory warm-up, to node 0 through the broker: {b['loadgen_tx_per_s']:,.0f} tx/s); "
+            f"node 0 took {distilled} distilled batches and refused the {n_tampered} tampered "
+            f"transfers; verify kernel launches a node {[x['launches'] for x in k1]} (= batches "
+            f"{[x['batches'] for x in k1]}); the broker forwarded {bstat['stats']['broker_entries_tx']} "
+            f"entries in {bstat['stats']['broker_batches_tx']} frames; {stitched['coverage']['with_broker']} "
+            f"transfers stitched across the broker hop; certificate lag {[round(x, 3) for x in lag_b]} s "
+            f"a node; {card_line}")
+        log(f"{label}: broker hop segments {json.dumps(hop, sort_keys=True)}")
+        log(f"{label}: top.py --once exited 0:")
+        for line in top.stdout.rstrip().splitlines():
+            log("  " + line)
+        out["net_broker"] = {
+            "launches": sum(x["launches"] for x in k1), "tx_per_s": b["tx_per_s"],
+            "wall_s": b["wall_s"], "transfers": b["transfers"],
+            "loadgen_tx_per_s": b["loadgen_tx_per_s"], "distilled_batches": distilled,
+            "rejected": b["rejected"], "nodes": k1, "certificate_lag_s": lag_b,
+            "broker_entries_tx": bstat["stats"]["broker_entries_tx"],
+            "broker_batches_tx": bstat["stats"]["broker_batches_tx"],
+            "with_broker": stitched["coverage"]["with_broker"], "finality": fin_b,
+        }
+    finally:
+        brc = None
+        if broker_proc is not None:
+            import signal
 
-                broker_proc.send_signal(signal.SIGINT)
-                try:
-                    brc = broker_proc.wait(timeout=60)
-                except subprocess.TimeoutExpired:
-                    broker_proc.kill()
-                    brc = broker_proc.wait()
-            rcs = net.stop()
-        check(rcs == [0] * net.n, f"phase 10: servers exited with {rcs} on SIGTERM")
-        check(broker_proc is None or brc == 0, f"phase 10: the broker exited with {brc} on SIGINT")
-        log("phase 10: every server exited 0 on SIGTERM, the broker 0 on SIGINT")
+            broker_proc.send_signal(signal.SIGINT)
+            try:
+                brc = broker_proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                broker_proc.kill()
+                brc = broker_proc.wait()
+        rcs = net.stop()
+    check(rcs == [0] * net.n, f"phase 10: servers exited with {rcs} on SIGTERM")
+    check(broker_proc is None or brc == 0, f"phase 10: the broker exited with {brc} on SIGINT")
+    log("phase 10: every server exited 0 on SIGTERM, the broker 0 on SIGINT")
     return out
 
 
@@ -3239,18 +3232,14 @@ def sim_start(pool) -> dict:
     return {j: pool.submit(sim_tool, *jobs[j]) for j in order}
 
 
-def sim_path(capture: str | None, card: str, started: dict | None = None) -> dict:
+def sim_path(capture: str | None, card: str, started: dict) -> dict:
     """Phase 11: the port's deterministic simulator through its five CLIs,
     each a subprocess, SIM_WORKERS at a time. 11a the campaigns and the
     planted breach, 11b the grids and the overload A/B, 11c phase 10a's
     capture replayed, 11d bench_finality; every hash against SIM_GATES.
-    ``started``: ``sim_start``'s futures, when those runs went first."""
+    ``started``: ``sim_start``'s futures of 11a, 11b and 11d."""
     t0 = time.perf_counter()
-    if started is None:
-        with ThreadPoolExecutor(max_workers=SIM_WORKERS) as ex:
-            runs = {j: f.result() for j, f in sim_start(ex).items()}
-    else:
-        runs = {j: f.result() for j, f in started.items()}
+    runs = {j: f.result() for j, f in started.items()}
     if capture is not None:
         runs[("capture", 0)] = sim_tool("at2_node_tpu_torch.tools.capture_replay",
                                         (capture, "--repeat", "2", "--json"))
@@ -5115,12 +5104,25 @@ async def ab_arm(net: ServerNet, senders: ABSenders, plan: dict, controlled: boo
     slo_ms = plan["latency_slo_ms"]
     launches = [status[i]["build"]["kernel_launches"] - status0[i]["build"]["kernel_launches"] for i in range(n)]
     t_sched_end = t_go + max(t for t, _, _ in events)
+    # when the crowd was admitted at each node against when its controller
+    # first read level 2 or more (the shed ramp's start), in seconds from
+    # the burst's first offer: a level that comes after the last admission
+    # finds no crowd left to shed
+    crowd = {hexes[c] for c in range(len(keys))} - steady if workload == "flash_crowd" else set()
+    t_burst = min((t_offer[k] for k, (_, _, a) in enumerate(events) if hexes[a["client"]] in crowd), default=t_go)
     nodes = []
     for i in range(n):
         health = [h for h in poll.health(i) if h[1] is not None]
         top, led = dominant_signal(poll.pressure[i])
         qw = status[i].get("verifier_stages", {}).get("queue_wait", {})
+        admitted = sorted(st["admitted"] for st in ({stage: mono for stage, mono, _ in rec["stages"]}
+                                                    for rec in traces[i]["completed"] + traces[i]["live"]
+                                                    if rec["origin"] and rec["sender"] in crowd) if "admitted" in st)
+        level2 = next((h[0] for h in health if h[0] >= t_go and (h[3] or 0) >= 2), None)
         nodes.append({
+            "crowd_admitted_s": [round(admitted[0] - t_burst, 3), round(admitted[-1] - t_burst, 3)]
+            if admitted else None,
+            "level2_s": None if level2 is None else round(level2 - t_burst, 3),
             "peak_level": max((h[3] or 0 for h in health), default=0),
             "peak_pressure": max((h[4] or 0.0 for h in health), default=0.0),
             "peak_signal": top, "signal_led": led,
@@ -5197,7 +5199,9 @@ async def ab_arm(net: ServerNet, senders: ABSenders, plan: dict, controlled: boo
     # be gated again
     row["strict_c3_held"] = bool(retried_committed) if controlled and workload == "flash_crowd" else None
     if controlled and workload == "flash_crowd" and kind == "cuda":
-        gate(sum(shed_req) >= 1, "no node shed a request: the shed path did not run")
+        gate(sum(shed_req) >= 1, "no node shed a request: the shed path did not run (a node's crowd admitted "
+             "from / until, and its level 2 first read, in s after the burst's first offer: "
+             f"{[(p['crowd_admitted_s'], p['level2_s']) for p in nodes]})")
         gate(set(codes) <= {"RESOURCE_EXHAUSTED"}, f"refusals other than RESOURCE_EXHAUSTED: {dict(codes)}")
         gate(not bad_hints, f"refusal hints outside [{ov.retry_after_ms}, {ov.retry_after_max_ms}] ms: {bad_hints[:8]}")
         gate(n_retries > 0 and not early, f"RetryPolicy retried {n_retries} refusals, {len(early)} of them "
@@ -5240,7 +5244,9 @@ async def ab_arm(net: ServerNet, senders: ABSenders, plan: dict, controlled: boo
             f"signal at the peak {p['peak_signal']} (readings each signal led {p['signal_led']}); burn at the "
             f"end {p['burn_end']}; level 0 {seconds_or_never(p['level0_s'])} after the schedule's last offer; "
             f"verifier queue peak {p['queue_peak']}, queue wait p50 {p['queue_wait_p50_ms']} ms p99 "
-            f"{p['queue_wait_p99_ms']} ms; K1 launches {launches[i]}")
+            f"{p['queue_wait_p99_ms']} ms; K1 launches {launches[i]}"
+            + (f"; the crowd admitted from {p['crowd_admitted_s']} s after the burst's first offer, level 2 "
+               f"first read {p['level2_s']} s after it" if crowd else ""))
     return row
 
 
@@ -5651,8 +5657,11 @@ async def reannounce(net: ServerNet, survivors: list, keys: dict, chunk: int, do
         async with grpc.aio.insecure_channel(f"127.0.0.1:{net.rpc_ports[i]}") as channel:
             stub = At2Stub(channel)
             t_end = time.perf_counter() + 120.0
-            while not done(st0, net.stats(i)):
-                check(time.perf_counter() < t_end, f"{label}: node {i} still short after {n} Register calls")
+            while not done(st0, st := net.stats(i)):
+                check(time.perf_counter() < t_end, f"{label}: node {i} still short after {n} Register calls "
+                      f"(its mesh at the start / now: " + ", ".join(
+                          f"{k} {st0[k]} / {st[k]}" for k in ("mesh_redials", "mesh_dial_failures",
+                                                             "mesh_send_overflows", "mesh_send_queue_depth")) + ")")
                 await asyncio.gather(*(stub.Register(req) for _ in range(chunk)))
                 n += chunk
                 await asyncio.sleep(0.01)
@@ -5701,12 +5710,15 @@ async def rejoin_run(net: ServerNet, plan: dict, burst_transfers: list, paced_pe
     # and replays it on redial, as after a short absence; so does the
     # batch its sender held when a send to r first failed. Directory
     # announcements fill both instead: first until every survivor's
-    # sender to r has failed (``mesh_redials`` grew), then, after the
+    # sender to r is down (``mesh_redials`` grew: a send failed; or
+    # ``mesh_dial_failures`` grew: a sender that had failed before, while
+    # r stopped, cannot dial it), then, after the
     # tail, until its mesh has dropped as many messages as its queues
     # held. Then nothing of the tail is left to replay, as after a long
     # absence, and the tail reaches r only through catch-up.
     filler = {i: SignKeyPair(plan["rng"].bytes(32)) for i in survivors}
-    await reannounce(net, survivors, filler, 4, lambda st0, st: st["mesh_redials"] > st0["mesh_redials"], label)
+    await reannounce(net, survivors, filler, 4, lambda st0, st: st["mesh_redials"] > st0["mesh_redials"]
+                     or st["mesh_dial_failures"] > st0["mesh_dial_failures"], label)
     tail = more_transfers(plan["rng"], keys, len(burst_transfers[0]) + 1, tail_per)
     n_tail = sum(map(len, tail))
     before = {i: net.committed(i) for i in survivors}
@@ -6089,8 +6101,8 @@ def main() -> None:
                 f"\"auto\", the verify kernel) in this call")
             lap("7")
             t10 = time.perf_counter()
-            finality = asyncio.run(finality_broker_path(args.seed, times, device_name, card, capture_to=capture,
-                                                        net=trio[2]))
+            finality = asyncio.run(finality_broker_path(args.seed, times, device_name, card, trio[2],
+                                                        capture_to=capture))
             log(f"finality and broker node net: [finality] enabled "
                 f"{finality['net_finality']['tx_per_s']:,.0f} tx/s (SendAssetBatch), through the broker "
                 f"{finality['net_broker']['tx_per_s']:,.0f} tx/s (loadgen --broker, unary SendAsset distilled "
@@ -6110,7 +6122,7 @@ def main() -> None:
     lap("9")
     pooled = pool_path(torch, mat, rng, args.seed, kp["by_lanes"])
     lap("8")
-    sim = sim_path(capture, card, started=sims)
+    sim = sim_path(capture, card, sims)
     simdir.cleanup()
     lap("11")
     tools, tool_launches = tools_path(args.seed, cert, card, k1=kp["by_lanes"][65536])
@@ -6257,4 +6269,8 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    except Exception as exc:  # the line that says which check ended the call
+        log(f"FAILED: {exc}")
+        raise

@@ -61,6 +61,13 @@ async def test_chip_smoke_phase14_runs_with_the_cpu_kind(tmp_path, capsys, refer
     for r in rows[0::2]:  # (b) and the parked count of an arm that refused nothing
         assert r["shed"] == r["shed_events"] == r["refusals"] == r["parked"] == 0
         assert r["expected"] == r["offered"] and r["peak_level"] == 0
+    for r in rows:  # when each node admitted the crowd, beside its first level-2 reading
+        admitted = [p["crowd_admitted_s"] for p in r["nodes_detail"]]
+        if r["workload"] == "flash_crowd":
+            assert any(a is not None and 0.0 <= a[0] <= a[1] for a in admitted), admitted
+        else:
+            assert admitted == [None] * 4
+    assert text.count("the crowd admitted from") == 8
     assert out["calibration"] is None and "C_tx 100.0 tx/s (given)" in text
     doc = json.loads((tmp_path / "overload_ab_served.json").read_text())
     assert doc["bench"] == "overload_ab_served" and len(doc["cells"]) == 4

@@ -33,7 +33,7 @@ from at2_node_tpu_torch.crypto.keys import ExchangeKeyPair, SignKeyPair
 from at2_node_tpu_torch.net.peers import Peer
 from at2_node_tpu_torch.node.config import Config, ObservabilityConfig, VerifierConfig
 from at2_node_tpu_torch.node.service import Service
-from at2_node_tpu_torch.obs import Registry
+from at2_node_tpu_torch.obs import Registry, profiler
 from at2_node_tpu_torch.obs.profiler import (
     PHASES,
     PLANE_LEAF_PHASES,
@@ -175,9 +175,14 @@ class TestPhaseAccounting:
         # begin/end_plane delegate to the base accounting (plane_total
         # stays an owner-loop aggregate, never per-shard)
         t = v0.begin_plane()
-        assert v1.begin_plane() == -1  # same context: depth is shared
+        t_nested = v1.begin_plane()
+        assert t_nested == -1  # same context: depth is shared
+        v1.end_plane(t_nested)
         v0.end_plane(t)
         assert ph.totals()["plane_total"] > 0
+        # unwound: a depth left open here would turn every later plane
+        # cycle of this thread (and of the tasks it starts) into a nested one
+        assert profiler._plane_depth.get() == 0
 
 
 # ------------------------------------------------------------ stack sampler

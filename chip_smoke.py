@@ -306,20 +306,23 @@ that a miss says whether this process or the host stalled:
    hot_account, each uncontrolled then controlled) on four ``server run``
    nodes with ``kind = "cuda"`` a net, at the cell's thresholds of two
    peers (f = 1), in place of its modeled verifier.
-   A calibration pair of nets (no tables) runs the same closed-loop unary
-   ``SendAsset`` traffic (256 keys, 4 s) one net after the other: C_tx is
-   the mean of their committed rates, beside the signatures the four
-   verifiers checked a committed transfer, the queue peak and wait and
-   the sender processes' CPU. Each workload's schedule is the reference cell's
-   (its seed derivation, the port's generator; 120 clients, a crowd of 80,
-   12 s; hot_account's cut to 3 s) at ``n_tx = round(run length x C_tx /
-   capacity_frac)``; its pair of
-   nets (both workloads' pairs start together) stays up through both
-   arms: uncontrolled
-   with no ``[overload]`` table, controlled with
-   ``overload_objectives(cap)`` written key by key (cap: the per-node
-   verify rate at C_tx); every node with trace, done and recorder caps of
-   ``max(4096, 4 n_tx)``. The steady tier registers (every node's
+   flash_crowd's uncontrolled net (no ``[overload]`` table) starts
+   first, and C_tx is measured on it: as many fresh keys as the crowd
+   offer it 2,500 unary ``SendAsset`` a second for the burst's window
+   (1.2 s: 3,000), open loop, more than any net of the card takes, in
+   the shape of the crowd's burst (uniform times and nodes), and C_tx is
+   the rate at which their last node's commits came between the 10th and
+   the 90th percentile, beside the signatures the four verifiers checked
+   a committed transfer; the net drains before its arm. Each workload's
+   schedule is the reference cell's (its seed derivation, the port's
+   generator; 120 clients, a crowd of 80, 12 s; hot_account's cut to
+   3 s) at ``n_tx = round(run length x C_tx / capacity_frac)``; the
+   other three nets (the controlled ones with ``overload_objectives(cap)``
+   written key by key, cap: the per-node verify rate at C_tx) start
+   together once it is measured, and every net stays up through both
+   workloads' arms. Every node has trace, done and recorder caps of
+   ``max(4096, 4 n_tx)``, the measured net's at the n_tx of the offered
+   rate. The steady tier registers (every node's
    ``directory_size`` counts it, ``Register`` answers its id at every
    node); eight spawned sender processes, two a node, send each event as
    one unary ``SendAsset`` at its offered time through
@@ -336,7 +339,9 @@ that a miss says whether this process or the host stalled:
    sheds on some node, every refusal RESOURCE_EXHAUSTED with a hint in
    [250, 3000] ms, and RetryPolicy retries, each no sooner than 0.75 x
    its hint after the refusal (a retried transfer committing held on the
-   card only sometimes: a tracked strict check, printed every run);
+   card only sometimes: a tracked strict check, printed every run; so
+   is a second one, level 2 first read before the crowd's last admission
+   on every node, with each node's margin);
    (d) K1 launches on every node in every arm; (e) the p99 of a send's
    lateness against its offered time is under 0.5 s. A row a cell (the reference cell's keys,
    ``card``, C_tx, sigs a transfer, K1 launches, the controller's peak,
@@ -3905,6 +3910,11 @@ def drop_counters(metrics: dict) -> dict:
     return {k: v for k, v in metrics.items() if "drop" in k}
 
 
+def rate_text(r) -> str:
+    """A rate in tx/s; None: no window to take it over."""
+    return "n/a" if r is None else f"{r:,.1f} tx/s"
+
+
 def seconds_or_never(s) -> str:
     """A reading of seconds after the crowd's end; None: not within the arm."""
     return "not within the arm" if s is None else f"{s:.2f} s"
@@ -4486,15 +4496,18 @@ AB_QUIET_S = 0.5  # the committed counts hold still this long before the sequenc
 # a call the server's event loop has not taken up this long is cancelled by
 # grpc (its max unrequested time in server, 30 s by default)
 AB_UNREQUESTED_S = 29.5
-CAL_SECONDS = 4.0  # closed-loop calibration on each net of the calibration pair
-CAL_CLIENTS = 256  # calibration keys, closed loop, spread over the sender processes
+# the intake measurement that sizes the cells (C_tx) offers transfers open
+# loop within the burst's window at this rate: above any net's intake on
+# the card (1,878.2 tx/s at most), and few enough (3,000 in 1.2 s) that
+# at the lowest intake seen (353.8 tx/s) the last offer waits under 10 s,
+# a third of grpc's unrequested limit
+INTAKE_RATE = 2500.0
 
 
 def ab_sender_main(conn) -> None:
     """A phase-14 sender process: it serves jobs from ``conn`` (a Pipe end)
-    until ``("stop",)``. A job is ``("calibrate", port, keys, recipients,
-    seconds, seed)`` or ``("schedule", port, job)``; the sender prepares it
-    (keys, signatures, channels to the node's RPC port), answers
+    until ``("stop",)``. A job is ``("schedule", port, job)``; the sender
+    prepares it (keys, signatures, channels to the node's RPC port), answers
     ``("ready", seconds)``, takes ``("go", t_go)`` (a ``time.monotonic()``
     instant: the clock is system-wide) and answers with the job's result,
     or ``("error", text)``."""
@@ -4505,8 +4518,8 @@ def ab_sender_main(conn) -> None:
         if msg[0] == "stop":
             return
         try:
-            fn = {"calibrate": _sender_calibrate, "schedule": _sender_schedule}[msg[0]]
-            conn.send(asyncio.run(fn(conn, *msg[1:])))
+            check(msg[0] == "schedule", f"no sender job {msg[0]!r}")
+            conn.send(asyncio.run(_sender_schedule(conn, *msg[1:])))
         except Exception:
             conn.send(("error", traceback.format_exc()))
 
@@ -4522,46 +4535,6 @@ async def _sender_channels(port: int) -> tuple:
                 for _ in range(AB_CHANNELS)]
     await asyncio.gather(*(asyncio.wait_for(ch.channel_ready(), 30) for ch in channels))
     return channels, [At2Stub(ch) for ch in channels]
-
-
-async def _sender_calibrate(conn, port: int, keys: list, recipients: list, seconds: float, seed: int) -> tuple:
-    """Closed loop: each key sends a unary ``SendAsset`` (sequence 1, 2,
-    ... to a seeded recipient, amount 1-20) as soon as its last one was
-    acknowledged, from ``t_go`` until ``seconds`` after it. Returns each
-    key's acknowledged (seq, recipient, amount) and the process's CPU
-    seconds over the window."""
-    import random
-
-    from at2_node_tpu_torch.crypto.keys import SignKeyPair
-    from at2_node_tpu_torch.proto import at2_pb2 as pb
-    from at2_node_tpu_torch.types import transfer_signing_bytes
-
-    kps = [SignKeyPair(k) for k in keys]
-    channels, stubs = await _sender_channels(port)
-    conn.send(("ready", 0.0))
-    t_go = conn.recv()[1]
-    acked: list = [[] for _ in kps]
-
-    async def client(c: int) -> None:
-        kp, stub, seq = kps[c], stubs[c % len(stubs)], 1
-        rng = random.Random(f"{seed}/{kp.public.hex()}")
-        await asyncio.sleep(max(0.0, t_go - time.monotonic()))
-        while time.monotonic() < t_go + seconds:
-            to, amount = recipients[rng.randrange(len(recipients))], rng.randint(1, 20)
-            await stub.SendAsset(pb.SendAssetRequest(
-                sender=kp.public, sequence=seq, recipient=to, amount=amount,
-                signature=kp.sign(transfer_signing_bytes(kp.public, seq, to, amount))))
-            acked[c].append((seq, to, amount))
-            seq += 1
-
-    await asyncio.sleep(max(0.0, t_go - time.monotonic()))
-    cpu0 = time.process_time()
-    try:
-        await asyncio.gather(*(client(c) for c in range(len(kps))))
-    finally:
-        for ch in channels:
-            await ch.close()
-    return "done", acked, time.process_time() - cpu0, time.monotonic()
 
 
 async def _sender_schedule(conn, port: int, job: dict) -> tuple:
@@ -4880,13 +4853,60 @@ def level0_after(readings: list, t_from: float):
     return after[high[-1] + 1][0] - t_from if high[-1] + 1 < len(after) else None
 
 
+AB_SIGNALS = ("occupancy", "sojourn", "backlog", "tail", "burn")  # the controller's five (node/overload.py)
+
+
+def level2_margin(readings: list, t_from: float, t_burst: float, last_admitted) -> tuple:
+    """From a node's /healthz readings: its first level-2 (or higher)
+    reading at or after ``t_from``, in seconds after ``t_burst`` (the
+    burst's first offer), and the margin in seconds from it to
+    ``last_admitted`` (the node's last crowd admission, an instant), which
+    is negative when level 2 came after it; None for what did not come."""
+    first = next((h[0] for h in readings if h[0] >= t_from and h[1] is not None and (h[3] or 0) >= 2), None)
+    level2_s = None if first is None else round(first - t_burst, 3)
+    margin = None if first is None or last_admitted is None else round(last_admitted - first, 3)
+    return level2_s, margin
+
+
+def first_over(blocks: list, t_from: float, threshold: float) -> tuple:
+    """From a node's /statusz pressure blocks: the first reading at or
+    after ``t_from`` whose pressure is at least ``threshold``, as (its
+    instant, the signal that was largest there); (None, None) if none."""
+    for t, b in blocks:
+        sig = b.get("signals") or {}
+        if t >= t_from and b.get("pressure", 0.0) >= threshold and sig:
+            return t, max(sig, key=sig.get)
+    return None, None
+
+
+def last_commits(traces: list, keys=None) -> list:
+    """The instants at which transfers (of ``keys``, every one if None)
+    stamped ``committed`` on every node's ``/tracez`` got their last
+    node's stamp, ascending."""
+    stamps: dict = {}
+    for i, dump in enumerate(traces):
+        for rec in dump["completed"] + dump["live"]:
+            key = (rec["sender"], rec["seq"])
+            if keys is None or key in keys:
+                for stage, mono, _ in rec["stages"]:
+                    if stage == "committed":
+                        stamps.setdefault(key, {})[i] = mono
+    return sorted(max(s.values()) for s in stamps.values() if len(s) == len(traces))
+
+
+def commit_rate(commits: list, t_from: float, t_to: float):
+    """Transfers a second whose last commit (``last_commits``) fell in
+    [t_from, t_to]; None for an empty window."""
+    if t_to <= t_from:
+        return None
+    return sum(1 for t in commits if t_from <= t <= t_to) / (t_to - t_from)
+
+
 def ab_net(kind: str, workdir: str, ov, trace_cap: int) -> ServerNet:
-    """An arm's (or the calibration's) four ``server run`` nodes at the
-    reference cell's f = 1 thresholds: ``ab_table``'s tables on every
-    node; ``trace_cap`` None: no tables."""
+    """An arm's four ``server run`` nodes at the reference cell's f = 1
+    thresholds, ``ab_table``'s tables on every node."""
     os.makedirs(workdir)
-    return ServerNet(kind, workdir, top=AB_THRESHOLDS,
-                     tables=None if trace_cap is None else (lambda i: ab_table(ov, trace_cap)))
+    return ServerNet(kind, workdir, top=AB_THRESHOLDS, tables=lambda i: ab_table(ov, trace_cap))
 
 
 def start_pair(nets: list, label: str) -> float:
@@ -4916,50 +4936,100 @@ def start_pair(nets: list, label: str) -> float:
     return up
 
 
-async def calibrate(net: ServerNet, senders: ABSenders, keys: list, seconds: float, seed: int,
-                    label: str) -> dict:
-    """Closed-loop unary ``SendAsset`` from ``keys`` (key c through sender
-    and node c mod n) for ``seconds``; every acknowledged transfer must
-    commit on every node and equal the python-int replay. The committed
-    rate (acknowledged transfers over the go instant to the last node's
-    last commit), the signatures the four verifiers checked a committed
-    transfer, the verifier queue peak and queue wait, and each sender process's
-    CPU share."""
-    n, m = net.n, len(senders.conns)
+def ab_jobs(net: ServerNet, events: list, keys: list, m: int, rng_seed: str) -> list:
+    """The senders' jobs for a schedule on ``net``: sender j takes every
+    (m / n)-th event of node j mod n, in order, each event (index, t,
+    the sender's private key, seq, recipient, amount), RetryPolicy(budget
+    AB_RETRY_BUDGET) with its own seeded rng."""
+    n = net.n
     pubs = [kp.public for kp in keys]
+    by_node = [[(k, t, keys[a["client"]].private_bytes, a["seq"], pubs[a["to"]], a["amount"])
+                for k, (t, _, a) in enumerate(events) if a["node"] == i] for i in range(n)]
+    return [("schedule", net.rpc_ports[j % n], {"events": by_node[j % n][j // n::m // n], "budget": AB_RETRY_BUDGET,
+                                                 "rng_seed": f"{rng_seed}/{j}"}) for j in range(m)]
+
+
+def intake_events(seed, n_keys: int, nodes: int, rate: float, seconds: float) -> list:
+    """The intake measurement's offer, in the shape of the flash crowd's
+    burst (``flash_crowd_workload``): rate x seconds transfers, each at a
+    uniform time in the window to a uniform node, from the keys in turn,
+    a sender's sequences in time order (the reference's ``_finish_txs``),
+    each to one of the keys, amount 1-20."""
+    import random
+
+    from at2_node_tpu_torch.sim.scenarios import _finish_txs
+
+    rng = random.Random(f"{seed}/intake")
+    raw = [(rng.uniform(0.0, seconds), rng.randrange(nodes), i % n_keys) for i in range(int(round(rate * seconds)))]
+    return _finish_txs(rng, raw, n_keys)
+
+
+def intake_rate(commits: list) -> float:
+    """A net's intake from the instants its offered transfers were
+    committed everywhere (``last_commits``, ascending): the commits
+    between the 10th and 90th percentile over the time between them,
+    which leaves out the ramp before the net was full and the tail after
+    its backlog ran out."""
+    lo = len(commits) // 10
+    hi = len(commits) - 1 - lo
+    check(hi > lo and commits[hi] > commits[lo], f"too few commits to take a rate from: {len(commits)}")
+    return (hi - lo) / (commits[hi] - commits[lo])
+
+
+async def measure_intake(net: ServerNet, senders: ABSenders, seed: int, crowd: int, duration: float, trace_cap: int,
+                         label: str) -> dict:
+    """C_tx on the net that runs an arm: ``crowd`` fresh keys offer
+    INTAKE_RATE transfers a second over the burst's window (a tenth of
+    ``duration``, ``flash_crowd_workload``'s) in the burst's shape
+    (``intake_events``) as
+    unary ``SendAsset`` through the senders, open loop; every one must be
+    acknowledged, commit on every node and equal the python-int replay,
+    and the net drains (its committed counts hold still AB_QUIET_S).
+    Returns the intake (``intake_rate`` over every node's ``/tracez``
+    commit stamps), the signatures the four verifiers checked a committed
+    transfer, how long the backlog outlasted the offer, and K1 launches a
+    node."""
+    from at2_node_tpu_torch.crypto.keys import SignKeyPair
+
+    n = net.n
+    rng = np.random.default_rng(seed + 14)
+    keys = [SignKeyPair(rng.bytes(32)) for _ in range(crowd)]
+    window = 0.1 * duration
+    events = intake_events(seed, len(keys), n, INTAKE_RATE, window)
     before = [net.statusz(i) for i in range(n)]
-    jobs = [("calibrate", net.rpc_ports[j % n], [kp.private_bytes for kp in keys[j::m]], pubs, seconds, seed)
-            for j in range(m)]
-    t_go, _, done = senders.run(jobs)
-    per_key = [None] * len(keys)
-    for j, (_, acked, _, _) in enumerate(done):
-        per_key[j::m] = acked
-    n_acked = sum(len(a) for a in per_key)
-    t_last = wait_committed(net, [b["stats"]["committed"] + n_acked for b in before], 120.0)
-    after = [net.statusz(i) for i in range(n)]
+    t_go, _, done = senders.run(ab_jobs(net, events, keys, len(senders.conns), f"{seed}/intake"))
+    records = [r for _, recs, _ in done for r in recs]
+    refused = Counter(outcome for _, _, _, outcome, _, _ in records if outcome != "ack")
+    check(not refused and len(records) == len(events), f"{label}: {len(records)} of {len(events)} sent, "
+          f"refused {dict(refused)}")
+    wait_committed(net, [b["stats"]["committed"] + len(events) for b in before], AB_SETTLE_S)
+    counts, t_still = None, time.monotonic()
+    while counts is None or time.monotonic() - t_still < AB_QUIET_S:
+        now_counts = [net.committed(i) for i in range(n)]
+        if now_counts != counts:
+            counts, t_still = now_counts, time.monotonic()
+        await asyncio.sleep(0.1)
+    with ThreadPoolExecutor(max_workers=n) as pool:
+        after = list(pool.map(net.statusz, range(n)))
+        traces = list(pool.map(lambda i: json.loads(net.get(i, f"/tracez?limit={trace_cap}")), range(n)))
+    per_key: list = [[] for _ in keys]
+    for _, _, a in events:
+        per_key[a["client"]].append((a["seq"], keys[a["to"]].public, a["amount"]))
     await check_replay(net, keys, per_key)
-    window = t_last - t_go
+    commits = last_commits(traces, {(keys[a["client"]].public.hex(), a["seq"]) for _, _, a in events})
+    check(len(commits) == len(events), f"{label}: {len(commits)} of {len(events)} transfers stamped committed on "
+          f"every node's /tracez")
     sigs = sum(a["stats"]["verifier_signatures"] - b["stats"]["verifier_signatures"] for a, b in zip(after, before))
-    qw = [(a["verifier_stages"].get("queue_wait", {}), b["verifier_stages"].get("queue_wait", {}))
-          for a, b in zip(after, before)]
-    d_count = sum(a.get("count", 0) - b.get("count", 0) for a, b in qw)
-    d_sum = sum(a.get("sum_ms", 0.0) - b.get("sum_ms", 0.0) for a, b in qw)
-    out = {
-        "tx_per_s": n_acked / window, "transfers": n_acked, "window_s": window,
-        "sigs_per_tx": sigs / n_acked if n_acked else 0.0, "sigs_per_s": sigs / window,
-        "queue_peak": [a["stats"].get("verifier_queue_peak") for a in after],
-        "queue_wait_p50_ms": [a.get("p50_ms") for a, _ in qw],
-        "queue_wait_mean_ms": d_sum / d_count if d_count else None,
-        "sender_cpu_share": [cpu / (t_end - t_go) for _, _, cpu, t_end in done],
-        "launches": [a["build"]["kernel_launches"] - b["build"]["kernel_launches"] for a, b in zip(after, before)],
-    }
-    log(f"{label}: {len(keys)} keys closed-loop unary SendAsset for {seconds:.1f} s: {n_acked} transfers "
-        f"committed on all {n} nodes in {window:.3f} s = {out['tx_per_s']:,.1f} tx/s (equal to the python-int "
-        f"replay); {out['sigs_per_tx']:.2f} signatures verified a committed transfer over the {n} nodes "
-        f"(the reference's _OVERLOAD_SIGS_PER_TX: 33), {out['sigs_per_s']:,.0f} sigs/s; verifier queue peak "
-        f"{out['queue_peak']}, queue wait p50 since start {out['queue_wait_p50_ms']} ms, mean over the window "
-        f"{out['queue_wait_mean_ms'] if d_count else 'n/a'} ms; sender CPU "
-        f"{[round(s, 3) for s in out['sender_cpu_share']]} of a core each; K1 launches {out['launches']}")
+    out = {"tx_per_s": intake_rate(commits), "transfers": len(events), "offered_per_s": INTAKE_RATE,
+           "sigs_per_tx": sigs / len(events), "first_commit_s": commits[0] - t_go,
+           "backlog_s": commits[-1] - (t_go + events[-1][0]),
+           "launches": [a["build"]["kernel_launches"] - b["build"]["kernel_launches"] for a, b in zip(after, before)]}
+    log(f"{label}: {len(keys)} fresh keys offered {len(events)} unary SendAsset open loop in {window:g} s "
+        f"({INTAKE_RATE:,.0f} tx/s), all acknowledged, committed on all {n} nodes and equal to the python-int "
+        f"replay; intake (the commits between the 0.1 and 0.9 quantiles) "
+        f"{out['tx_per_s']:,.1f} tx/s, the first commit {out['first_commit_s']:.3f} s after the first offer, the "
+        f"last {out['backlog_s']:.3f} s after the last; {out['sigs_per_tx']:.2f} signatures verified a committed "
+        f"transfer over the {n} nodes (the reference's _OVERLOAD_SIGS_PER_TX: 33); K1 launches {out['launches']}")
     return out
 
 
@@ -4991,13 +5061,7 @@ async def ab_arm(net: ServerNet, senders: ABSenders, plan: dict, controlled: boo
         t_reg = time.monotonic() - t_reg
         status0 = [net.statusz(i) for i in range(n)]
         drops0 = [drop_counters(net.metrics(i)) for i in range(n)]
-        # sender j takes every (m / n)-th event of node j mod n, in order
-        m = len(senders.conns)
-        by_node = [[(k, t, keys[a["client"]].private_bytes, a["seq"], pubs[a["to"]], a["amount"])
-                    for k, (t, _, a) in enumerate(events) if a["node"] == i] for i in range(n)]
-        jobs = [("schedule", net.rpc_ports[j % n], {
-            "events": by_node[j % n][j // n::m // n], "budget": AB_RETRY_BUDGET,
-            "rng_seed": f"{plan['seed']}/{workload}/{arm}/{j}"}) for j in range(m)]
+        jobs = ab_jobs(net, events, keys, len(senders.conns), f"{plan['seed']}/{workload}/{arm}")
         with Poller(net) as poll:
             t_go, ready, done = senders.run(jobs)
             t_sent = time.monotonic()
@@ -5041,8 +5105,13 @@ async def ab_arm(net: ServerNet, senders: ABSenders, plan: dict, controlled: boo
         status = list(pool.map(net.statusz, range(n)))
         metrics = list(pool.map(net.metrics, range(n)))
         debugz = list(pool.map(lambda i: json.loads(net.get(i, "/debugz")), range(n)))
-        traces = list(pool.map(lambda i: json.loads(net.get(i, f"/tracez?limit={plan['trace_cap']}")), range(n)))
+        traces = list(pool.map(lambda i: json.loads(net.get(i, f"/tracez?limit={plan['trace_caps'][controlled]}")),
+                               range(n)))
     collect_s = time.monotonic() - t_read
+    # this arm's transfers (the intake measurement ran on flash_crowd's
+    # uncontrolled net before its arm, from keys of its own)
+    mine = set(hexes)
+    traces = [{k: [r for r in d[k] if r["sender"] in mine] for k in ("completed", "live")} for d in traces]
 
     # the schedule as sent
     t_offer = {k: t_go + t for k, (t, _, _) in enumerate(events)}
@@ -5118,11 +5187,18 @@ async def ab_arm(net: ServerNet, senders: ABSenders, plan: dict, controlled: boo
         admitted = sorted(st["admitted"] for st in ({stage: mono for stage, mono, _ in rec["stages"]}
                                                     for rec in traces[i]["completed"] + traces[i]["live"]
                                                     if rec["origin"] and rec["sender"] in crowd) if "admitted" in st)
-        level2 = next((h[0] for h in health if h[0] >= t_go and (h[3] or 0) >= 2), None)
+        level2_s, margin = level2_margin(health, t_go, t_burst, admitted[-1] if admitted else None)
+        t_over, over_signal = first_over(poll.pressure[i], t_go, ov.shed_start) if ov is not None else (None, None)
+        # the controller's readings from the burst's first offer to the
+        # crowd's last admission: (s after the offer, pressure, AB_SIGNALS)
+        series = [(round(t - t_burst, 2), b.get("pressure"), [(b.get("signals") or {}).get(s) for s in AB_SIGNALS])
+                  for t, b in poll.pressure[i] if admitted and t_burst <= t <= admitted[-1]]
         nodes.append({
             "crowd_admitted_s": [round(admitted[0] - t_burst, 3), round(admitted[-1] - t_burst, 3)]
             if admitted else None,
-            "level2_s": None if level2 is None else round(level2 - t_burst, 3),
+            "level2_s": level2_s, "level2_margin_s": margin if crowd else None,
+            "over_shed_start": None if t_over is None else [round(t_over - t_burst, 3), over_signal],
+            "pressure_series": series if crowd else None,
             "peak_level": max((h[3] or 0 for h in health), default=0),
             "peak_pressure": max((h[4] or 0.0 for h in health), default=0.0),
             "peak_signal": top, "signal_led": led,
@@ -5133,6 +5209,13 @@ async def ab_arm(net: ServerNet, senders: ABSenders, plan: dict, controlled: boo
         })
     peak = max(range(n), key=lambda i: nodes[i]["peak_pressure"])
     level0 = [p["level0_s"] for p in nodes]
+    # the arm net's own committed rate: over the arm (the first offer to
+    # the last commit on every node), and while the crowd was admitted
+    # (the burst's first offer to the last node's last crowd admission)
+    commits = last_commits(traces)
+    crowd_end = max((t_burst + p["crowd_admitted_s"][1] for p in nodes if p["crowd_admitted_s"]), default=None)
+    arm_rate = commit_rate(commits, t_go, commits[-1]) if commits else None
+    crowd_rate = commit_rate(commits, t_burst, crowd_end) if crowd_end is not None else None
     row = {
         "workload": workload, "arm": arm, "seed": plan["seed"], "nodes": n, "f": 1,
         "n_clients": len(keys), "crowd": plan["crowd"] if workload == "flash_crowd" else 1,
@@ -5157,6 +5240,8 @@ async def ab_arm(net: ServerNet, senders: ABSenders, plan: dict, controlled: boo
         "sender_cpu_share": [cpu / (t_sent - t_go) for _, _, cpu in done],
         "sign_s": [r[1] for r in ready], "arm_s": t_settled - t_go, "nodes_detail": nodes,
         "directory_size": size, "steady_stages_ms": stages, "register_s": t_reg, "collect_s": collect_s,
+        "arm_tx_per_s": arm_rate, "crowd_tx_per_s": crowd_rate,
+        "queue_target": None if ov is None else ov.queue_target,
     }
 
     # a failed call is a shed (RESOURCE_EXHAUSTED) or a call the node's
@@ -5198,6 +5283,12 @@ async def ab_arm(net: ServerNet, senders: ABSenders, plan: dict, controlled: boo
     # and kept in the row, not gated; once it holds in every run, it is to
     # be gated again
     row["strict_c3_held"] = bool(retried_committed) if controlled and workload == "flash_crowd" else None
+    # how early the controller came: level 2 first read before the crowd's
+    # last admission on every node (a tracked strict check, printed and
+    # kept in the row, not gated), each node's margin in seconds beside it
+    row["level2_margins_s"] = [p["level2_margin_s"] for p in nodes]
+    row["strict_level2_held"] = (all(m is not None and m > 0 for m in row["level2_margins_s"])
+                                 if controlled and workload == "flash_crowd" else None)
     if controlled and workload == "flash_crowd" and kind == "cuda":
         gate(sum(shed_req) >= 1, "no node shed a request: the shed path did not run (a node's crowd admitted "
              "from / until, and its level 2 first read, in s after the burst's first offer: "
@@ -5234,19 +5325,28 @@ async def ab_arm(net: ServerNet, senders: ABSenders, plan: dict, controlled: boo
         f"latency_slo_ms {slo_ms:.0f}: slo_ok {row['slo_ok']}; fairness {fairness:.4f} (floor "
         f"{AB_FAIRNESS_FLOOR}): fairness_ok {row['fairness_ok']}; committed (fewest of a node) {row['committed']}; "
         f"the steady tier's time by segment (p50, p99 ms; the admitting node's stamps): {stages}")
-    if row["strict_c3_held"] is not None:
-        log(f"{label}: strict check (c) 3 (a transfer retried by RetryPolicy, then committed on every node): "
-            f"{'held' if row['strict_c3_held'] else 'MISSED'} ({len(retried_committed)} transfers; a known miss "
-            f"on the card, open in ROADMAP section 3: printed, not gated)")
+    def strict(held) -> str:
+        return "n/a (the controlled flash_crowd arm's)" if held is None else "held" if held else "MISSED"
+
+    log(f"{label}: strict check (c) 3 (a transfer retried by RetryPolicy, then committed on every node): "
+        f"{strict(row['strict_c3_held'])} ({len(retried_committed)} transfers; a known miss on the card, open in "
+        f"ROADMAP section 3: printed, not gated); strict check, level 2 first read before the crowd's last "
+        f"admission on every node: {strict(row['strict_level2_held'])} (the margin a node, s: "
+        f"{row['level2_margins_s']}; printed, not gated)")
+    log(f"{label}: the arm net's committed rate {rate_text(arm_rate)} over the arm, {rate_text(crowd_rate)} "
+        f"while the crowd was admitted; C_tx {plan['c_tx']:,.1f} tx/s")
     for i, p in enumerate(nodes):
         log(f"{label} node {i}: overload_shed_requests {shed_req[i]}, shed entries {shed[i]}, recorder shed "
             f"events {shed_events[i]}; peak level {p['peak_level']}, peak pressure {p['peak_pressure']}, the "
             f"signal at the peak {p['peak_signal']} (readings each signal led {p['signal_led']}); burn at the "
             f"end {p['burn_end']}; level 0 {seconds_or_never(p['level0_s'])} after the schedule's last offer; "
-            f"verifier queue peak {p['queue_peak']}, queue wait p50 {p['queue_wait_p50_ms']} ms p99 "
-            f"{p['queue_wait_p99_ms']} ms; K1 launches {launches[i]}"
+            f"verifier queue peak {p['queue_peak']} (queue_target {row['queue_target']}), queue wait p50 "
+            f"{p['queue_wait_p50_ms']} ms p99 {p['queue_wait_p99_ms']} ms; K1 launches {launches[i]}"
             + (f"; the crowd admitted from {p['crowd_admitted_s']} s after the burst's first offer, level 2 "
-               f"first read {p['level2_s']} s after it" if crowd else ""))
+               f"first read {p['level2_s']} s after it (margin {p['level2_margin_s']} s), pressure first over "
+               f"shed_start (s after the offer, the largest signal) {p['over_shed_start']}; readings from the "
+               f"offer to the last admission (s, pressure, {'/'.join(AB_SIGNALS)}): {p['pressure_series']}"
+               if crowd else ""))
     return row
 
 
@@ -5258,7 +5358,7 @@ async def ab_pair(nets: dict, senders: ABSenders, plan: dict, ov, kind: str, fai
     from at2_node_tpu_torch.node.config import Config
     from at2_node_tpu_torch.sim.scenarios import _OVERLOAD_WORKLOADS
 
-    workload, trace_cap = plan["workload"], plan["trace_cap"]
+    workload = plan["workload"]
     tune = _OVERLOAD_WORKLOADS[workload]
     pair = []
     try:
@@ -5267,7 +5367,7 @@ async def ab_pair(nets: dict, senders: ABSenders, plan: dict, ov, kind: str, fai
                 with open(path) as f:
                     got = Config.loads(f.read())
                 check(got.overload == (ov if on else type(ov)()) and
-                      got.observability.trace_done_cap == trace_cap and
+                      got.observability.trace_done_cap == plan["trace_caps"][on] and
                       got.echo_threshold == got.ready_threshold == 2,
                       f"{path}: its [overload] table {got.overload} is not the arm's")
         for on in (False, True):
@@ -5293,77 +5393,86 @@ async def overload_ab_path(seed: int, card_line: str, kind: str = "cuda", c_tx: 
                            n_clients: int = AB_CLIENTS, crowd: int = AB_CROWD, duration: float = AB_DURATION_S,
                            out_dir: str | None = None) -> dict:
     """Phase 14: the reference's overload A/B bench on four served nodes
-    a net. Unless ``c_tx`` is given, a calibration pair of nets (no
-    tables) is driven closed loop, one net after the other, and C_tx is
-    the mean of their committed rates. Then each workload: a pair of nets
-    (uncontrolled: no ``[overload]`` table; controlled:
-    ``overload_objectives(cap)``, cap the per-node verify rate at C_tx),
-    up through both arms; the same schedule on each. Both workloads'
-    pairs start together. A row a cell goes to ``out_dir`` (``tools/_common.OUT_DIR`` by
-    default). A failed gate fails the phase once all four cells printed."""
+    a net, a pair of nets a workload (uncontrolled: no ``[overload]``
+    table; controlled: ``overload_objectives(cap)``, cap the per-node
+    verify rate at C_tx), the same schedule on each. Unless ``c_tx`` is
+    given, flash_crowd's uncontrolled net starts first and C_tx is
+    ``measure_intake`` on it. Then the other nets start together, and
+    every net stays up until its pair's arms are over. A row a cell goes
+    to ``out_dir`` (``tools/_common.OUT_DIR`` by default). A failed gate
+    fails the phase once all four cells printed."""
     import tempfile
 
-    from at2_node_tpu_torch.crypto.keys import SignKeyPair
     from at2_node_tpu_torch.sim.net import sim_client
     from at2_node_tpu_torch.sim.scenarios import _OVERLOAD_SIGS_PER_TX, _OVERLOAD_WORKLOADS, overload_objectives
     from at2_node_tpu_torch.tools._common import OUT_DIR, card_stamp
 
     t14 = time.perf_counter()
     stamp = card_stamp("cuda:0" if kind == "cuda" else "cpu")
-    rows, failures, cal = [], [], None
+    rows, failures, intake = [], [], None
+
+    def caps(rate: float) -> dict:
+        """The reference cell's trace, done and recorder caps, max(4096,
+        4 n_tx), at each workload's n_tx for ``rate``."""
+        return {w: max(4096, 4 * ab_n_tx(rate, _OVERLOAD_WORKLOADS[w]["capacity_frac"], duration * AB_DEPTH[w]))
+                for w in AB_WORKLOADS}
+
     senders = ABSenders()
     try:
         with tempfile.TemporaryDirectory(prefix="at2-phase14-") as workdir:
-            if c_tx is None:
-                rng = np.random.default_rng(seed + 14)
-                cal_keys = [SignKeyPair(rng.bytes(32)) for _ in range(CAL_CLIENTS)]
-                nets = [ab_net(kind, os.path.join(workdir, f"cal{k}"), None, None) for k in range(2)]
-                try:
-                    start_pair(nets, "overload A/B calibration (14)")
-                    runs = [await calibrate(net, senders, cal_keys, CAL_SECONDS, seed,
-                                            f"overload A/B calibration (14, net {k})") for k, net in enumerate(nets)]
-                finally:
-                    for net in nets:  # both nets shut down side by side
-                        net.terminate()
-                    rcs = [net.stop() for net in nets]
-                check(all(r == [0] * len(r) for r in rcs), f"overload A/B calibration (14): servers exited with "
-                      f"{rcs} on SIGTERM")
-                c_tx = sum(r["tx_per_s"] for r in runs) / len(runs)
-                sigs_per_tx = sum(r["sigs_per_tx"] for r in runs) / len(runs)
-                cal = {"nets": runs, "c_tx": c_tx, "sigs_per_tx": sigs_per_tx}
-            else:
-                sigs_per_tx = _OVERLOAD_SIGS_PER_TX
-            cap = c_tx * sigs_per_tx / NET_NODES
-            ov = overload_objectives(cap)
-            log(f"overload A/B (14): C_tx {c_tx:,.1f} tx/s ({'the mean of the two calibration nets' if cal else 'given'}), "
-                f"{sigs_per_tx:.2f} signatures a transfer ({'measured' if cal else 'the reference'}; the reference "
-                f"models {_OVERLOAD_SIGS_PER_TX:.0f}): the controlled arms' cap {cap:,.1f} sigs/s a node (each node's "
-                f"controller reads its own verifier), {cap * NET_NODES:,.1f} for the fleet; overload_objectives(cap): "
-                f"queue_target {ov.queue_target}, sample_interval {ov.sample_interval}, smoothing {ov.smoothing}, "
-                f"sojourn_target_ms {ov.sojourn_target_ms}, retry_after_ms [{ov.retry_after_ms}, "
-                f"{ov.retry_after_max_ms}]")
-            plans, pairs = {}, {}
-            for workload in AB_WORKLOADS:
-                tune = _OVERLOAD_WORKLOADS[workload]
-                run_s = duration * AB_DEPTH[workload]
-                n_tx = ab_n_tx(c_tx, tune["capacity_frac"], run_s)
-                trace_cap = max(4096, 4 * n_tx)  # the reference cell's rule
-                plans[workload] = {
-                    "seed": seed, "workload": workload, "crowd": crowd, "cap": cap, "c_tx": c_tx,
-                    "sigs_per_tx": sigs_per_tx, "card": stamp, "latency_slo_ms": tune["latency_slo_ms"],
-                    "trace_cap": trace_cap, "keys": [sim_client(seed, i) for i in range(n_clients)],
-                    "events": ab_schedule(seed, workload, NET_NODES, n_clients, crowd, n_tx, run_s),
-                    "steady_ids": ab_steady_ids(workload, n_clients, crowd)}
-                log(f"overload A/B (14, {workload}): n_tx {n_tx} = round({run_s:g} s x C_tx / capacity_frac "
-                    f"{tune['capacity_frac']}), {n_clients} clients ({len(plans[workload]['steady_ids'])} "
-                    f"steady), latency_slo_ms {tune['latency_slo_ms']:.0f}; trace and recorder caps {trace_cap}")
-                pairs[workload] = {on: ab_net(kind, os.path.join(workdir, f"{workload}-{'on' if on else 'off'}"),
-                                              ov if on else None, trace_cap) for on in (False, True)}
-            # both workloads' pairs start side by side; hot_account's stays
-            # idle through flash_crowd's arms
-            every = [net for nets in pairs.values() for net in nets.values()]
+            def net_of(workload: str, ov, trace_cap: int):
+                name = f"{workload}-{'on' if ov is not None else 'off'}"
+                return ab_net(kind, os.path.join(workdir, name), ov, trace_cap)
+
+            pairs = {w: {} for w in AB_WORKLOADS}
+            every = []
             try:
-                start_pair(every, "overload A/B node nets (14, " + ", ".join(AB_WORKLOADS) + ")")
+                if c_tx is None:
+                    # the measured net starts before C_tx is known: its caps
+                    # hold the measurement and a cell at the offered rate
+                    bound = caps(INTAKE_RATE)["flash_crowd"]
+                    measured = pairs["flash_crowd"][False] = net_of("flash_crowd", None, bound)
+                    every.append(measured)
+                    start_pair([measured], "overload A/B node net (14, flash_crowd, uncontrolled)")
+                    intake = await measure_intake(measured, senders, seed, crowd, duration, bound,
+                                                  "overload A/B intake (14, flash_crowd, the uncontrolled net)")
+                    c_tx, sigs_per_tx = intake["tx_per_s"], intake["sigs_per_tx"]
+                else:
+                    sigs_per_tx = _OVERLOAD_SIGS_PER_TX
+                cap = c_tx * sigs_per_tx / NET_NODES
+                ov = overload_objectives(cap)
+                log(f"overload A/B (14): C_tx {c_tx:,.1f} tx/s "
+                    f"({'measured on the flash_crowd uncontrolled net' if intake else 'given'}), {sigs_per_tx:.2f} "
+                    f"signatures a transfer ({'measured' if intake else 'the reference'}; the reference models "
+                    f"{_OVERLOAD_SIGS_PER_TX:.0f}): the controlled arms' cap {cap:,.1f} sigs/s a node (each node's "
+                    f"controller reads its own verifier), {cap * NET_NODES:,.1f} for the fleet; "
+                    f"overload_objectives(cap): queue_target {ov.queue_target}, sample_interval "
+                    f"{ov.sample_interval}, smoothing {ov.smoothing}, sojourn_target_ms {ov.sojourn_target_ms}, "
+                    f"retry_after_ms [{ov.retry_after_ms}, {ov.retry_after_max_ms}]")
+                plans, trace_caps = {}, caps(c_tx)
+                arm_caps = {w: {on: bound if on in pairs[w] else trace_caps[w] for on in (False, True)}
+                            for w in AB_WORKLOADS}
+                for workload in AB_WORKLOADS:
+                    tune = _OVERLOAD_WORKLOADS[workload]
+                    run_s = duration * AB_DEPTH[workload]
+                    n_tx = ab_n_tx(c_tx, tune["capacity_frac"], run_s)
+                    plans[workload] = {
+                        "seed": seed, "workload": workload, "crowd": crowd, "cap": cap, "c_tx": c_tx,
+                        "sigs_per_tx": sigs_per_tx, "card": stamp, "latency_slo_ms": tune["latency_slo_ms"],
+                        "trace_caps": arm_caps[workload], "keys": [sim_client(seed, i) for i in range(n_clients)],
+                        "events": ab_schedule(seed, workload, NET_NODES, n_clients, crowd, n_tx, run_s),
+                        "steady_ids": ab_steady_ids(workload, n_clients, crowd)}
+                    log(f"overload A/B (14, {workload}): n_tx {n_tx} = round({run_s:g} s x C_tx / capacity_frac "
+                        f"{tune['capacity_frac']}), {n_clients} clients ({len(plans[workload]['steady_ids'])} "
+                        f"steady), latency_slo_ms {tune['latency_slo_ms']:.0f}; trace and recorder caps "
+                        f"{trace_caps[workload]}"
+                        + (f" ({bound} on the measured net)" if False in pairs[workload] else ""))
+                rest = [(w, on) for w in AB_WORKLOADS for on in (False, True) if on not in pairs[w]]
+                for w, on in rest:
+                    pairs[w][on] = net_of(w, ov if on else None, arm_caps[w][on])
+                every += [pairs[w][on] for w, on in rest]
+                start_pair([pairs[w][on] for w, on in rest], "overload A/B node nets (14, " + ", ".join(
+                    f"{w} {'controlled' if on else 'uncontrolled'}" for w, on in rest) + ")")
                 for workload in AB_WORKLOADS:
                     rows += await ab_pair(pairs[workload], senders, plans[workload], ov, kind, failures,
                                           card_line)
@@ -5374,21 +5483,24 @@ async def overload_ab_path(seed: int, card_line: str, kind: str = "cuda", c_tx: 
         senders.close()
     bars = {w: (not r[0]["slo_ok"]) and r[1]["slo_ok"] and r[1]["fairness_ok"]
             for w, r in zip(AB_WORKLOADS, zip(rows[0::2], rows[1::2]))}
-    doc = {"bench": "overload_ab_served", "seed": seed, "card": stamp, "calibration": cal, "cells": rows,
+    doc = {"bench": "overload_ab_served", "seed": seed, "card": stamp, "intake": intake, "cells": rows,
            "bars": bars, "ok": all(bars.values())}
     os.makedirs(out_dir or OUT_DIR, exist_ok=True)
     path = os.path.join(out_dir or OUT_DIR, "overload_ab_served.json")
     write_json(path, doc)
     seconds = time.perf_counter() - t14
     c3 = [r["strict_c3_held"] for r in rows if r["strict_c3_held"] is not None]
+    l2 = [r for r in rows if r["strict_level2_held"] is not None]
     log(f"overload A/B (14): {len(rows)} rows written to {path}; the reference's bar: "
         + ", ".join(f"{w} {'held' if ok else 'MISSED'}" for w, ok in bars.items())
-        + f" (printed, not gated on); strict check (c) 3: {'held' if all(c3) else 'MISSED'}; phase 14 took "
+        + f" (printed, not gated on); strict check (c) 3: {'held' if all(c3) else 'MISSED'}; strict check, level 2 "
+        f"before the crowd's last admission on every node: "
+        f"{'held' if all(r['strict_level2_held'] for r in l2) else 'MISSED'}"
+        f" (margins, s: {[r['level2_margins_s'] for r in l2]}); phase 14 took "
         f"{seconds:.1f} s; {card_line}")
     check(not failures, "phase 14: " + "; ".join(failures))
-    return {"rows": rows, "bars": bars, "calibration": cal, "path": path, "seconds": seconds,
-            "launches": sum(sum(r["kernel_launches"]) for r in rows)
-            + (sum(sum(r["launches"]) for r in cal["nets"]) if cal else 0)}
+    return {"rows": rows, "bars": bars, "intake": intake, "path": path, "seconds": seconds,
+            "launches": sum(sum(r["kernel_launches"]) for r in rows) + (sum(intake["launches"]) if intake else 0)}
 
 
 # -- phase 15 --------------------------------------------------------------
@@ -6176,7 +6288,7 @@ def main() -> None:
                                         for row in tools},
                       "overload": {arm: [p["launches"] for p in overload[f"overload_{arm}"]["nodes"]]
                                    for arm in ("off", "on")},
-                      "overload_ab": {"calibration": [r["launches"] for r in overload_ab["calibration"]["nets"]],
+                      "overload_ab": {"intake": overload_ab["intake"]["launches"],
                                       **{f"{r['workload']}/{r['arm']}": r["kernel_launches"]
                                          for r in overload_ab["rows"]}},
                       "wan": {"off": [p["launches"] for p in wan["wan_off"]["nodes"]],
@@ -6256,7 +6368,7 @@ def main() -> None:
     })
     print(json.dumps({"sim": sim}))
     print(json.dumps({"overload": overload}))
-    print(json.dumps({"overload_ab": {k: overload_ab[k] for k in ("rows", "bars", "calibration", "path")}}))
+    print(json.dumps({"overload_ab": {k: overload_ab[k] for k in ("rows", "bars", "intake", "path")}}))
     print(json.dumps({"wan": wan}))
     for row in tools:
         print(json.dumps(row))

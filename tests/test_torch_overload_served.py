@@ -68,11 +68,54 @@ async def test_chip_smoke_phase14_runs_with_the_cpu_kind(tmp_path, capsys, refer
         else:
             assert admitted == [None] * 4
     assert text.count("the crowd admitted from") == 8
-    assert out["calibration"] is None and "C_tx 100.0 tx/s (given)" in text
+    # the two tracked strict checks, printed in every arm and kept in every row
+    assert text.count("strict check (c) 3 (a transfer retried by RetryPolicy") == 4
+    assert text.count("strict check, level 2 first read before the crowd's last admission on every node") == 4
+    for r in rows:
+        applies = r["workload"] == "flash_crowd" and r["arm"] == "controlled"
+        assert (r["strict_level2_held"] is None) is (not applies)
+        assert len(r["level2_margins_s"]) == 4 and r["arm_tx_per_s"] > 0
+    assert out["intake"] is None and "C_tx 100.0 tx/s (given)" in text
     doc = json.loads((tmp_path / "overload_ab_served.json").read_text())
     assert doc["bench"] == "overload_ab_served" and len(doc["cells"]) == 4
     assert set(doc["bars"]) == {"flash_crowd", "hot_account"}
     assert text.count("the reference's bar (run_overload_ab's ok") == 2
+
+
+async def test_chip_smoke_phase14_measures_the_intake_with_the_cpu_kind(tmp_path, capsys, monkeypatch):
+    """Without a given C_tx the phase measures it on flash_crowd's
+    uncontrolled net (a small open-loop offer here) and sizes every cell
+    from it; that net's arm then holds its gates with the measurement's
+    transfers in its trace ring."""
+    monkeypatch.setattr(chip_smoke, "INTAKE_RATE", 400.0)
+    out = await chip_smoke.overload_ab_path(9, "cpu", kind="cpu", n_clients=12, crowd=8, duration=3.0,
+                                            out_dir=str(tmp_path))
+    text = capsys.readouterr().out
+    intake = out["intake"]
+    # as many keys as the crowd, over the burst's window (a tenth of the run)
+    assert intake["transfers"] == 120 and intake["offered_per_s"] == 400.0
+    assert "8 fresh keys offered 120 unary SendAsset open loop in 0.3 s" in text
+    assert intake["backlog_s"] >= 0 and intake["first_commit_s"] > 0
+    assert intake["tx_per_s"] > 0 and intake["sigs_per_tx"] > 0 and intake["launches"] == [0, 0, 0, 0]
+    assert "all acknowledged, committed on all 4 nodes and equal to the python-int replay" in text
+    assert "measured on the flash_crowd uncontrolled net" in text
+    # the measured net starts alone, the other three once C_tx is known
+    assert "overload A/B node net (14, flash_crowd, uncontrolled): 1 net of 4" in text
+    assert ("overload A/B node nets (14, flash_crowd controlled, hot_account uncontrolled, hot_account "
+            "controlled): 3 nets of 4") in text
+    # its caps hold a cell at the offered rate; the others' the reference cell's
+    assert f"({4 * chip_smoke.ab_n_tx(400.0, 0.9, 3.0)} on the measured net)" in text
+    caps = {r["workload"]: max(4096, 4 * r["n_tx"]) for r in out["rows"]}
+    assert f"trace and recorder caps {caps['flash_crowd']} (" in text
+    for r in out["rows"]:
+        assert r["c_tx"] == intake["tx_per_s"] and r["sigs_per_tx"] == intake["sigs_per_tx"]
+        assert r["n_tx"] == chip_smoke.ab_n_tx(intake["tx_per_s"], 0.9 if r["workload"] == "flash_crowd" else 0.68,
+                                               3.0 * chip_smoke.AB_DEPTH[r["workload"]])
+    flash_off = out["rows"][0]
+    assert (flash_off["workload"], flash_off["arm"]) == ("flash_crowd", "uncontrolled")
+    assert flash_off["expected"] == flash_off["offered"] == flash_off["committed"]
+    doc = json.loads((tmp_path / "overload_ab_served.json").read_text())
+    assert doc["intake"] == intake
 
 
 class TestPhase14AgainstTheReference:
@@ -215,6 +258,59 @@ class TestPhase14Readings:
                                                 INITIAL_BALANCE)
         assert faults == [f"{a.hex()[:12]}/3: expected and affordable (500 against {INITIAL_BALANCE - 10}), "
                           f"not committed"]
+
+    def test_intake_rate_leaves_out_the_ramp_and_the_tail(self):
+        """Made-up /tracez stamps: 100 transfers whose last node committed
+        them 10 ms apart once the net was full, after a slow ramp and
+        before a slow tail; a transfer stamped on one node only and
+        another sender's are not counted."""
+        a, b = "aa" * 32, "bb" * 32
+        last = [0.1 * k for k in range(10)] + [1.0 + 0.01 * k for k in range(80)] + \
+            [1.8 + 0.1 * k for k in range(10)]
+        early = [_dump([(a, q + 1, t - 0.05) for q, t in enumerate(last)] + [(a, 101, 9.0), (b, 1, 1.5)]),
+                 _dump([(a, q + 1, t) for q, t in enumerate(last)] + [(b, 1, 1.6)])]
+        keys = {(a, q) for q in range(1, 102)}
+        commits = chip_smoke.last_commits(early, keys)
+        assert commits == pytest.approx(last)
+        assert chip_smoke.intake_rate(commits) == pytest.approx(79 / (1.79 - 1.0))
+        assert chip_smoke.commit_rate(commits, 1.0, 1.79) == pytest.approx(80 / 0.79)
+        assert chip_smoke.commit_rate(commits, 2.0, 2.0) is None
+        with pytest.raises(RuntimeError):
+            chip_smoke.intake_rate([1.0, 1.0])
+
+    def test_intake_events_are_the_bursts_shape(self):
+        """The measurement's offer is the flash crowd's burst: uniform
+        times and nodes, the keys in turn, each sender's sequences in time
+        order, recipients among the keys; the same seed, the same offer."""
+        ev = chip_smoke.intake_events(3, 8, 4, 200.0, 1.2)
+        assert ev == chip_smoke.intake_events(3, 8, 4, 200.0, 1.2) != chip_smoke.intake_events(4, 8, 4, 200.0, 1.2)
+        assert len(ev) == 240 and [t for t, _, _ in ev] == sorted(t for t, _, _ in ev) and ev[-1][0] <= 1.2
+        assert {a["node"] for _, _, a in ev} == {0, 1, 2, 3}
+        for c in range(8):
+            mine = [a for _, _, a in ev if a["client"] == c]
+            assert [a["seq"] for a in mine] == list(range(1, 31))
+            assert all(0 <= a["to"] < 8 and 1 <= a["amount"] <= 20 for a in mine)
+
+    def test_level2_margin_against_the_last_admission(self):
+        """Made-up /healthz readings (start, code, status, level, ...):
+        the first level-2 reading from t_from on, in s after the burst,
+        and its margin to the node's last crowd admission."""
+        h = [(0.5, 200, "ok", 2), (1.2, 200, "ok", 1), (1.4, None, None, None), (2.0, 200, "overloaded", 2),
+             (3.0, 200, "overloaded", 3)]
+        assert chip_smoke.level2_margin(h, 1.0, 1.1, 6.5) == (0.9, 4.5)
+        assert chip_smoke.level2_margin(h, 1.0, 1.1, 1.5) == (0.9, -0.5)
+        assert chip_smoke.level2_margin(h, 1.0, 1.1, None) == (0.9, None)
+        assert chip_smoke.level2_margin(h[1:3], 1.0, 1.1, 6.5) == (None, None)
+
+    def test_first_over_names_the_signal_that_carried_it(self):
+        def block(pressure, **signals):
+            return {"pressure": pressure, "signals": signals}
+
+        blocks = [(0.5, block(0.7, tail=0.9, burn=0.1)), (1.0, block(0.3, tail=0.2, burn=0.4)),
+                  (1.5, block(0.55, tail=0.3, burn=0.8)), (2.0, block(0.6, tail=1.0, burn=0.8))]
+        assert chip_smoke.first_over(blocks, 1.0, 0.5) == (1.5, "burn")
+        assert chip_smoke.first_over(blocks, 0.0, 0.5) == (0.5, "tail")
+        assert chip_smoke.first_over(blocks, 1.0, 0.9) == (None, None)
 
     def test_level0_after(self):
         h = [(0.0, 200, "ok", 0), (1.0, 200, "overloaded", 2), (2.0, 200, "ok", 1), (3.0, 200, "ok", 0),

@@ -10,13 +10,14 @@ failed check report the longest overshoot of one sleep in that phase, so
 that a miss says whether this process or the host stalled:
 
 1. Device report: torch, CUDA, the card's name and power limit.
-2. Build: the CUDA verify kernel and the two RLC kernels (nvcc, sm_90a,
-   always rebuilt), the native host prep and the native message-plane
-   ingest (g++), all from the sources in this checkout, built side by
-   side; each kernel's registers, stack frame and spill bytes (the RLC
-   lanes kernel's for each layout's instantiation) are read from ptxas's
-   report. Phase 3 starts once the verify kernel is built, while the RLC
-   kernels still build.
+2. Build, through the release image's build step
+   (``at2_node_tpu_torch/prebuild.py``): the CUDA verify kernel and the two
+   RLC kernels (nvcc, sm_90a, always rebuilt), the native host prep and
+   the native message-plane ingest (g++), all from the sources in this
+   checkout, built side by side and each loaded; each kernel's
+   registers, stack frame and spill bytes (the RLC lanes kernel's for each
+   layout's instantiation) are read from ptxas's report. Phase 3 starts
+   once the verify kernel is built, while the RLC kernels still build.
 3. Kernel vs plain: about 1,000 signed transfers plus the RFC 8032 TEST 1
    vector and eight tamper classes, tiled into batches of every bucket the
    main path launches (65,536, 8,192, 4,096, 1,024, 256 and 64 lanes), a
@@ -404,7 +405,28 @@ that a miss says whether this process or the host stalled:
        third round commits on nodes 0-2, their ledgers equal to the
        replay; K1 launches. Every server exits 0 on SIGTERM, each broker
        0 on SIGINT.
-16. One JSON line describing the kernels (their times and bound at every
+16. The deploy unit's runbook (``deploy/README_torch.md``; run right
+   after phase 10, its net started beside phase 6's, 7's and 10's): four
+   nodes, each configured by ``bin/torch/server config new`` (``[verifier]
+   kind = "cuda"``) with every peer's ``config get-node`` fragment and a
+   ``[checkpoint]`` (1 s) under its own data directory appended, each
+   started by ``deploy/docker-compose.torch.yml``'s own entrypoint (``/bin/sh
+   -c "exec python -m at2_node_tpu_torch.cli.server run < node.toml"``,
+   the node's TOML in the mount's place; there is no docker). Two wallets
+   from ``bin/torch/client config new`` send 2 transfers each to each
+   other through ``bin/torch/client send-asset`` while 16 seeded clients
+   send 64 each (SendAssetBatch). Gated: every transfer commits on every
+   node and every ledger equals the python-int replay; each node's verify
+   kernel launched (its ``/statusz`` build block, which names the card);
+   down: SIGTERM to all four at once, each exits 0 within the unit's 30 s
+   ``stop_grace_period`` and its checkpoint, written at its stop, equals
+   the replay; up again from the same configs and data directories: every
+   node walks ``catchup`` to ``live`` within 120 s, ``bin/torch/client
+   get-balance`` reads back each wallet's balance and every node's ledger
+   equals the replay; one more ``send-asset`` then commits on all four,
+   each node's kernel launching. Printed: the seconds to each RPC port, to
+   ``live``, and of the down.
+17. One JSON line describing the kernels (their times and bound at every
    shape, every main-path run, the ptxas figures), then the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -548,86 +570,13 @@ def device_report(torch) -> str:
 # -- phase 2 ---------------------------------------------------------------
 
 
-# ptxas names: a kernel, or an instantiation of the RLC lanes template
-# (its mangled name) by layout
-PTXAS_ENTRIES = {
-    "ed25519_verify_kernel": "ed25519_verify_kernel",
-    "ed25519_rlc_lanes[whole]": "ed25519_rlc_lanesILi0E",
-    "ed25519_rlc_lanes[split]": "ed25519_rlc_lanesILi1E",
-    "ed25519_rlc_fold": "ed25519_rlc_fold",
-}
-
-
-def parse_ptxas(log_text: str, kernel: str) -> dict:
-    """Registers, stack frame and spill bytes of `kernel`'s entry function
-    (PTXAS_ENTRIES) from nvcc's ``-Xptxas -v`` output."""
-    entry = next((m for m in re.finditer(r"Compiling entry function '([^']+)'", log_text)
-                  if PTXAS_ENTRIES[kernel] in m.group(1)), None)
-    check(entry is not None, f"no ptxas report for {kernel}")
-    rest = log_text[entry.end():]
-    regs = re.search(r"Used (\d+) registers", rest)
-    frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", rest)
-    check(regs is not None and frame is not None, f"ptxas report for {kernel} not understood")
-    return {"registers": int(regs.group(1)), "stack_bytes": int(frame.group(1)),
-            "spill_bytes": int(frame.group(2)), "spill_load_bytes": int(frame.group(3))}
-
-
-def remove_kernel_libs() -> None:
-    """Delete the kernels' built libraries: each builds again from the
-    sources, so ptxas reports on what runs."""
-    from at2_node_tpu_torch.native._build import BUILD_DIR
-    from at2_node_tpu_torch.ops import cuda_rlc, cuda_verify
-
-    for mod in (cuda_verify, cuda_rlc):
-        lib = os.path.join(BUILD_DIR, mod.LIB_NAME)
-        if os.path.exists(lib):
-            os.remove(lib)
-
-
 def build_all() -> dict:
-    """Every library built from the sources (``remove_kernel_libs``, then
-    ``build_libs``); the ptxas figures of each kernel by name."""
-    remove_kernel_libs()
-    return build_libs()
+    """The release image's build step (``at2_node_tpu_torch/prebuild.py``):
+    every library built from the sources side by side and loaded; the
+    ptxas figures of each kernel by name."""
+    from at2_node_tpu_torch import prebuild
 
-
-def build_libs() -> dict:
-    """Every library, built side by side; the ptxas figures of each kernel
-    by name (a kernel whose library is fresh is not rebuilt and has none)."""
-    from at2_node_tpu_torch.native import ingest, prep
-    from at2_node_tpu_torch.ops import cuda_rlc, cuda_verify
-
-    def timed(fn):
-        t0 = time.perf_counter()
-        out = fn()
-        return out, time.perf_counter() - t0
-
-    with ThreadPoolExecutor(max_workers=4) as pool:
-        kern = pool.submit(timed, cuda_verify.build)
-        rlc = pool.submit(timed, cuda_rlc.build)
-        nat = pool.submit(timed, prep.native_available)
-        ing = pool.submit(timed, ingest.ingest_available)
-        _, kern_s = kern.result()
-        _, rlc_s = rlc.result()
-        native_ok, nat_s = nat.result()
-        ingest_ok, ing_s = ing.result()
-    log(f"build: verify kernel {kern_s:.1f} s, RLC kernels {rlc_s:.1f} s (nvcc sm_90a), native prep "
-        f"{nat_s:.1f} s (g++), native ingest {ing_s:.1f} s (g++, libcrypto): "
-        f"{'on' if ingest_ok else 'OFF, the broadcast plane parses and tallies in python'}")
-    ptxas = {}
-    for mod, names, build_s in ((cuda_verify, ("ed25519_verify_kernel",), kern_s),
-                                (cuda_rlc, ("ed25519_rlc_lanes[whole]", "ed25519_rlc_lanes[split]",
-                                            "ed25519_rlc_fold"), rlc_s)):
-        for line in mod.build_log.splitlines():
-            if "registers" in line or "spill" in line:
-                log("  ptxas:", line.strip())
-        for name in names:
-            ptxas[name] = {**parse_ptxas(mod.build_log, name), "build_s": build_s}
-            log(f"{name}: {ptxas[name]['registers']} registers, {ptxas[name]['stack_bytes']} bytes "
-                f"stack frame, {ptxas[name]['spill_bytes']} bytes spill stores")
-    check(native_ok, "native host prep did not build with g++")
-    log("prep path: native")
-    return ptxas
+    return prebuild.build_all(log)
 
 
 # -- test material ---------------------------------------------------------
@@ -1580,12 +1529,15 @@ def server_argv(*args: str) -> list:
     return [sys.executable, "-m", "at2_node_tpu_torch.cli.server", *args]
 
 
+def repo_root() -> str:
+    return os.path.dirname(os.path.abspath(__file__))
+
+
 def checkout_env() -> dict:
     """The environment of a process started from this checkout: the
     checkout first on PYTHONPATH."""
-    root = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ)
-    env["PYTHONPATH"] = root + (os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    env["PYTHONPATH"] = repo_root() + (os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
     return env
 
 
@@ -1613,11 +1565,18 @@ class ServerNet:
         self.rpc_ports: list = []
         self.terminated: set = set()  # the server processes sent SIGTERM
 
-    @staticmethod
-    def _spawn_cli(argvs: list) -> list:
+    def cli(self, *args: str) -> list:
+        """The argv of a ``server`` CLI command."""
+        return server_argv(*args)
+
+    def env(self) -> dict:
+        """The environment of the CLI commands and the servers."""
+        return checkout_env()
+
+    def _spawn_cli(self, argvs: list) -> list:
         """CLI commands started side by side, their input still open."""
         return [subprocess.Popen(a, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
-                                 stderr=subprocess.PIPE, text=True, env=checkout_env())
+                                 stderr=subprocess.PIPE, text=True, env=self.env())
                 for a in argvs]
 
     @staticmethod
@@ -1627,7 +1586,7 @@ class ServerNet:
         outs = []
         for argv, proc, text in zip(argvs, procs, inputs):
             out, err = proc.communicate(text, timeout=120)
-            check(proc.returncode == 0, f"{' '.join(argv[2:])} failed: {err.strip()[-2000:]}")
+            check(proc.returncode == 0, f"{' '.join(argv[1:])} failed: {err.strip()[-2000:]}")
             outs.append(out)
         return outs
 
@@ -1640,9 +1599,9 @@ class ServerNet:
         node_ports, self.rpc_ports = ports[0::2], ports[1::2]
         # the card's kind is config new's default; the host's is asked for
         ask = [] if self.kind == "cuda" else ["--verifier", self.kind]
-        new = [server_argv("config", "new", *ask, f"127.0.0.1:{a}", f"127.0.0.1:{b}")
+        new = [self.cli("config", "new", *ask, f"127.0.0.1:{a}", f"127.0.0.1:{b}")
                for a, b in zip(node_ports, self.rpc_ports)]
-        get = [server_argv("config", "get-node")] * self.n
+        get = [self.cli("config", "get-node")] * self.n
         # every `config get-node` starts beside the `config new`s and waits
         # on its input, so the interpreters start up together
         new_procs, get_procs = self._spawn_cli(new), self._spawn_cli(get)
@@ -6136,6 +6095,250 @@ async def wan_path(seed: int, card_line: str, kind: str = "cuda", paced_s: float
     return out
 
 
+# -- phase 16 ---------------------------------------------------------------
+
+
+DEPLOY_COMPOSE = "deploy/docker-compose.torch.yml"  # the port's activation unit
+DEPLOY_MOUNT = "/etc/at2/node.toml"  # where the unit mounts a node's config
+DEPLOY_CHECKPOINT_S = 1.0  # every node's [checkpoint] interval (the runbook's 30 s, cut to the phase)
+DEPLOY_GRACE_S = 30.0  # the unit's stop_grace_period
+DEPLOY_CLI_SENDS = 2  # `client send-asset` calls a CLI wallet (two wallets)
+DEPLOY_CLIENTS = 16  # the seeded in-process batch: 16 clients x 64 (SendAssetBatch)
+DEPLOY_PER_CLIENT = 64
+DEPLOY_LIVE_S = 120.0  # every node `live` within this after the up
+
+
+def compose_entrypoint() -> list:
+    """The port's compose unit's entrypoint as its file states it:
+    ``["/bin/sh", "-c", "<command reading DEPLOY_MOUNT>"]``."""
+    with open(os.path.join(repo_root(), DEPLOY_COMPOSE)) as f:
+        lines = [ln.strip() for ln in f if ln.strip().startswith("entrypoint:")]
+    check(len(lines) == 1, f"{DEPLOY_COMPOSE} has {len(lines)} entrypoint lines")
+    argv = json.loads(lines[0].split(":", 1)[1])
+    check(argv[:2] == ["/bin/sh", "-c"] and DEPLOY_MOUNT in argv[2],
+          f"{DEPLOY_COMPOSE}'s entrypoint {argv} is not a shell command reading {DEPLOY_MOUNT}")
+    return argv
+
+
+class DeployNet(ServerNet):
+    """Phase 16's four nodes, each an operator's deploy unit run as its
+    image would run it, without docker: configured through ``bin/torch/
+    server config new`` and ``config get-node`` (the runbook's fragments,
+    then a ``[checkpoint]`` under the node's data directory, the unit's
+    ``/data``), and started by the compose file's own entrypoint command
+    with the node's TOML in place of the mount. ``python`` on PATH is this
+    interpreter, as the image's venv is."""
+
+    def __init__(self, kind: str, workdir: str) -> None:
+        os.makedirs(workdir, exist_ok=True)
+        self.data = [os.path.join(workdir, f"data{i}") for i in range(NET_NODES)]
+        self.checkpoints = [os.path.join(d, "ledger.ckpt") for d in self.data]
+        for d in self.data:
+            os.makedirs(d)
+        super().__init__(kind, workdir, tables=lambda i: (
+            f'[checkpoint]\npath = "{self.checkpoints[i]}"\ninterval = {DEPLOY_CHECKPOINT_S}\n'))
+        self.entrypoint = compose_entrypoint()
+        self.bin = os.path.join(workdir, "bin")
+        os.makedirs(self.bin)
+        python = os.path.join(self.bin, "python")
+        with open(python, "w") as f:  # not a symlink: a venv's interpreter finds its venv by its own path
+            f.write(f'#!/bin/sh\nexec "{sys.executable}" "$@"\n')
+        os.chmod(python, 0o755)
+
+    def cli(self, *args: str) -> list:
+        return [os.path.join(repo_root(), "bin", "torch", "server"), *args]
+
+    def client(self, *args: str) -> list:
+        return [os.path.join(repo_root(), "bin", "torch", "client"), *args]
+
+    def env(self) -> dict:
+        env = checkout_env()
+        env["PATH"] = self.bin + os.pathsep + env.get("PATH", "")
+        return env
+
+    def _spawn(self, i: int, log_mode: str):
+        import shlex
+
+        command = self.entrypoint[2].replace(DEPLOY_MOUNT, shlex.quote(self.tomls[i]))
+        with open(self.logs[i], log_mode) as out:
+            return subprocess.Popen([*self.entrypoint[:2], command], stdin=subprocess.DEVNULL, stdout=out,
+                                    stderr=subprocess.STDOUT, env=self.env(), cwd=repo_root())
+
+    def run_cli(self, argv: list, text: str = "") -> str:
+        """One CLI command run to its end with ``text`` on its input; its
+        standard output."""
+        proc = subprocess.run(argv, input=text, capture_output=True, text=True, env=self.env(), timeout=120)
+        check(proc.returncode == 0, f"{os.path.basename(argv[0])} {' '.join(argv[1:])} exited "
+              f"{proc.returncode}: {proc.stderr.strip()[-2000:]}")
+        return proc.stdout
+
+
+def deploy_launches(net: ServerNet, before: list, label: str, card, kind: str) -> list:
+    """Each node's verify kernel launches since ``before`` (its /statusz),
+    with the card in its build block; each must be above 0 on the card."""
+    out = []
+    for i in range(net.n):
+        build = net.statusz(i)["build"]
+        out.append(build["kernel_launches"] - before[i]["build"]["kernel_launches"])
+        if kind == "cuda":
+            check(build.get("device") == card, f"{label} node {i}'s build block names {build.get('device')!r}")
+            check(out[-1] > 0, f"{label} node {i}: the verify kernel did not launch")
+    return out
+
+
+async def deploy_run(net: DeployNet, rng, label: str, card, kind: str, n_clients: int, per_client: int,
+                     cli_sends: int) -> dict:
+    """Phase 16 on a started ``DeployNet``: traffic, the ledgers, the down,
+    the checkpoints, the up, the balances through the CLI, one more
+    transfer."""
+    try:
+        import tomllib
+    except ModuleNotFoundError:  # Python < 3.11
+        import tomli as tomllib
+
+    from at2_node_tpu_torch.crypto.keys import SignKeyPair
+
+    n = net.n
+    # the runbook's wallets: `client config new` against node w's RPC port
+    wallets = await asyncio.gather(*(asyncio.to_thread(
+        net.run_cli, net.client("config", "new", f"http://127.0.0.1:{net.rpc_ports[w]}")) for w in range(2)))
+    pubs = await asyncio.gather(*(asyncio.to_thread(net.run_cli, net.client("config", "get-public-key"), w)
+                                  for w in wallets))
+    wallet_keys = [SignKeyPair.from_hex(tomllib.loads(w)["private_key"]) for w in wallets]
+    check([p.strip() for p in pubs] == [k.public.hex() for k in wallet_keys],
+          f"{label}: `client config get-public-key` disagrees with the wallets' keys")
+    by_cli = [[(seq, wallet_keys[1 - w].public, int(rng.integers(1, 51))) for seq in range(1, cli_sends + 1)]
+              for w in range(2)]
+    clients = [SignKeyPair(rng.bytes(32)) for _ in range(n_clients)]
+    batch = more_transfers(rng, clients, 1, per_client)
+    everyone, history = clients + wallet_keys, batch + by_cli
+    total = sum(map(len, history))
+
+    def send_cli(w: int, transfers: list) -> None:
+        for seq, recipient, amount in transfers:
+            net.run_cli(net.client("send-asset", str(seq), recipient.hex(), str(amount)), wallets[w])
+
+    before = [net.statusz(i) for i in range(n)]
+    t0 = time.perf_counter()
+    await asyncio.gather(*(asyncio.to_thread(send_cli, w, by_cli[w]) for w in range(2)),
+                         send_batched(net, clients, batch, lambda c: c % n))
+    commit_s = wait_committed(net, [total] * n, NET_DEADLINE_S) - t0
+    await check_replay(net, everyone, history)
+    replay = replay_ledger([(kp.public, *t) for kp, ts in zip(everyone, history) for t in ts])
+    traffic_launches = deploy_launches(net, before, label, card, kind)
+    log(f"{label}: {total} transfers ({len(clients)} clients x {per_client} SendAssetBatch, 2 CLI wallets x "
+        f"{cli_sends} `bin/torch/client send-asset`) committed on all {n} nodes in {commit_s:.3f} s; "
+        f"{len(replay)} accounts equal the python-int replay on every node; verify kernel launches a node "
+        f"{traffic_launches}")
+
+    # down: SIGTERM to every unit at once, as `docker compose down` on each host
+    import signal
+
+    t_down_wall, t_down = time.time(), time.perf_counter()
+    for p in net.procs:
+        p.send_signal(signal.SIGTERM)
+        net.terminated.add(p)
+    down_s = [None] * n
+    while any(s is None for s in down_s) and time.perf_counter() - t_down < DEPLOY_GRACE_S:
+        for i, p in enumerate(net.procs):
+            if down_s[i] is None and p.poll() is not None:
+                down_s[i] = time.perf_counter() - t_down
+        time.sleep(0.02)
+    check(all(s is not None for s in down_s),
+          f"{label}: nodes {[i for i, s in enumerate(down_s) if s is None]} still ran {DEPLOY_GRACE_S:.0f} s "
+          f"after SIGTERM (the unit's stop_grace_period): docker would kill them")
+    rcs = [p.returncode for p in net.procs]
+    check(rcs == [0] * n, f"{label}: the nodes exited with {rcs} on SIGTERM")
+    for i, path in enumerate(net.checkpoints):
+        check(os.path.exists(path) and os.path.getmtime(path) >= t_down_wall,
+              f"{label} node {i}: no checkpoint written at its stop ({path})")
+        snap = rejoin_frontier(path)
+        check(snap == replay, f"{label} node {i}: its checkpoint holds {len(snap)} accounts that differ from the "
+              f"replay's {len(replay)}")
+    log(f"{label}: down: every node exited 0 on SIGTERM in {[round(s, 3) for s in down_s]} s (the unit "
+        f"allows {DEPLOY_GRACE_S:.0f} s), each checkpoint written at its stop and equal to the replay")
+
+    # up again from the same configs and data directories
+    t_up = time.perf_counter()
+    for i in range(n):
+        net.restart(i)
+    rpc_s, live_s, states = [None] * n, [None] * n, [[] for _ in range(n)]
+    while any(s is None for s in live_s):
+        check(time.perf_counter() - t_up < DEPLOY_LIVE_S,
+              f"{label}: nodes {[i for i, s in enumerate(live_s) if s is None]} not live {DEPLOY_LIVE_S:.0f} s "
+              f"after the up (states {states})")
+        for i in range(n):
+            if live_s[i] is not None:
+                continue
+            check(net.procs[i].poll() is None,
+                  f"{label} node {i} exited with {net.procs[i].returncode}: {net.log_tail(i)}")
+            if rpc_s[i] is None:
+                if not net._accepts(net.rpc_ports[i]):
+                    continue
+                rpc_s[i] = time.perf_counter() - t_up
+            state = net.statusz(i)["recovery"]["state"]
+            if not states[i] or states[i][-1] != state:
+                states[i].append(state)
+            if state == "live":
+                live_s[i] = time.perf_counter() - t_up
+        await asyncio.sleep(0.05)
+    check(all("cold" not in s for s in states), f"{label}: a node restored from its checkpoint reported {states}")
+    got = await asyncio.gather(*(asyncio.to_thread(net.run_cli, net.client("get-balance"), w) for w in wallets))
+    want = [replay[k.public.hex()][1] for k in wallet_keys]
+    check([int(g) for g in got] == want,
+          f"{label}: `client get-balance` read {[g.strip() for g in got]} after the up, the replay says {want}")
+    await check_replay(net, everyone, history)
+    log(f"{label}: up: RPC ports {[round(s, 3) for s in rpc_s]} s after the start, live "
+        f"{[round(s, 3) for s in live_s]} s (recovery states {[' -> '.join(s) for s in states]}); "
+        f"`bin/torch/client get-balance` read back {got[0].strip()} and {got[1].strip()}, every node's ledger "
+        f"equal to the replay")
+
+    # one more transfer through the CLI commits on all four
+    up = [net.statusz(i) for i in range(n)]
+    more = (cli_sends + 1, wallet_keys[1].public, int(rng.integers(1, 51)))
+    send_cli(0, [more])
+    for i in range(n):
+        await wait_sequences(net, i, [wallet_keys[0]], cli_sends + 1, NET_DEADLINE_S)
+    by_cli[0].append(more)
+    await check_replay(net, everyone, history)
+    after_launches = deploy_launches(net, up, label, card, kind)
+    log(f"{label}: one more `client send-asset` committed on all {n} nodes after the up; verify kernel "
+        f"launches a node {after_launches}")
+    return {"transfers": total + 1, "commit_s": commit_s,
+            "launches": sum(traffic_launches) + sum(after_launches),
+            "nodes": [{"launches": a, "launches_after_up": b, "down_s": d, "rpc_up_s": r, "live_s": v,
+                       "states": s} for a, b, d, r, v, s in zip(traffic_launches, after_launches, down_s, rpc_s,
+                                                                 live_s, states)]}
+
+
+async def deploy_path(seed: int, card_line: str, kind: str = "cuda", net: DeployNet | None = None,
+                      n_clients: int = DEPLOY_CLIENTS, per_client: int = DEPLOY_PER_CLIENT,
+                      cli_sends: int = DEPLOY_CLI_SENDS) -> dict:
+    """Phase 16: deploy/README_torch.md's runbook on four nodes. ``net``: a
+    ``DeployNet`` already started (``start_pair``), else one is started
+    here; either way it is stopped here."""
+    import contextlib
+    import tempfile
+
+    label = "deploy unit (16)"
+    card = card_line.split(",")[0] if kind == "cuda" else None
+    rng = np.random.default_rng([seed, 16])
+    with contextlib.ExitStack() as stack:
+        if net is None:
+            net = DeployNet(kind, stack.enter_context(tempfile.TemporaryDirectory(prefix="at2-phase16-")))
+            start_pair([net], label)
+        log(f"{label}: {net.n} nodes configured by bin/torch/server config new + get-node with [checkpoint] "
+            f"under each data directory, each started by {DEPLOY_COMPOSE}'s entrypoint "
+            f"{' '.join(net.entrypoint[:2])} {json.dumps(net.entrypoint[2])}")
+        try:
+            out = await deploy_run(net, rng, label, card, kind, n_clients, per_client, cli_sends)
+        finally:
+            rcs = net.stop()
+        check(rcs == [0] * net.n, f"{label}: servers exited with {rcs} on SIGTERM")
+        log(f"{label}: every server exited 0 on SIGTERM; {card_line}")
+    return out
+
+
 def device_share(run: dict, by_lanes: dict) -> float:
     """Kernel time on the card over the run's wall time, from phase 3's
     per-bucket kernel times (device clock) and the run's flush buckets."""
@@ -6147,7 +6350,7 @@ def main() -> None:
     ap.add_argument("--seed", type=int, default=2026)
     args = ap.parse_args()
 
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, repo_root())
     import torch
 
     global SENTINEL
@@ -6171,9 +6374,11 @@ def main() -> None:
     # verify kernel is built, while the RLC kernels still build
     with ThreadPoolExecutor(max_workers=SIM_WORKERS) as sim_pool:
         sims = sim_start(sim_pool)
-        remove_kernel_libs()
+        from at2_node_tpu_torch import prebuild
+
+        prebuild.remove_kernel_libs()
         with ThreadPoolExecutor(max_workers=1) as builder:
-            built = builder.submit(build_libs)
+            built = builder.submit(prebuild.build_libs, log)
             rng = np.random.default_rng(args.seed)
             t0 = time.perf_counter()
             mat = Material(args.seed)
@@ -6193,17 +6398,19 @@ def main() -> None:
     net = asyncio.run(net_path(args.seed, kp["by_lanes"]))
     lap("5")
     device_name = torch.cuda.get_device_name(0)
-    # phases 6, 7 and 10 run one after another on nets started side by
-    # side (phase 9's process executor counts the card's compute apps, so
-    # its nets start after these have stopped)
+    # phases 6, 7, 10 and 16 run one after another on nets started side
+    # by side (phase 9's process executor counts the card's compute apps,
+    # so its nets start after these have stopped)
     simdir = tempfile.TemporaryDirectory(prefix="at2-phase11-")
     capture = os.path.join(simdir.name, "capturez-node0.json")
     with tempfile.TemporaryDirectory(prefix="at2-phase6-") as d6, \
             tempfile.TemporaryDirectory(prefix="at2-phase7-") as d7, \
-            tempfile.TemporaryDirectory(prefix="at2-phase10-") as d10:
+            tempfile.TemporaryDirectory(prefix="at2-phase10-") as d10, \
+            tempfile.TemporaryDirectory(prefix="at2-phase16-") as d16:
         trio = [ServerNet("cuda", d6), ServerNet("cuda", d7, mode="rlc"), finality_net("cuda", d10)]
+        unit = DeployNet("cuda", d16)
         try:
-            start_pair(trio, "node nets (6, 7, 10)")
+            start_pair(trio + [unit], "node nets (6, 7, 10, 16)")
             nodes = asyncio.run(node_path(args.seed, times, device_name, net=trio[0]))
             lap("6")
             rlc_nodes = asyncio.run(node_path(args.seed, times, device_name, mode="rlc",
@@ -6221,8 +6428,10 @@ def main() -> None:
                 f"into SendDistilledBatch), against {nodes['node_grpc_batched']['tx_per_s']:,.0f} tx/s for "
                 f"phase 6's run A in this call; phase 10 took {time.perf_counter() - t10:.1f} s; {card}")
             lap("10")
+            deploy = asyncio.run(deploy_path(args.seed, card, net=unit))
+            lap("16")
         finally:
-            for srv in trio:  # a net already stopped is left as it is
+            for srv in trio + [unit]:  # a net already stopped is left as it is
                 srv.stop()
     t9 = time.perf_counter()
     planes = asyncio.run(plane_store_path(args.seed, times, device_name, card))
@@ -6272,7 +6481,7 @@ def main() -> None:
         "source": "at2_node_tpu_torch/csrc/ed25519_verify.cu",
         "replaces": "at2_node_tpu/ops/pallas_verify.py:232",
         "launches": (mp["stress"]["launches"] + tool_launches["ed25519_verify"] + overload["launches"]
-                     + overload_ab["launches"] + wan["launches"]),
+                     + overload_ab["launches"] + wan["launches"] + deploy["launches"]),
         "mismatches": kp["mismatches"],
         "max_abs_err": kp["max_abs_err"],
         "lanes": 65536,
@@ -6293,7 +6502,9 @@ def main() -> None:
                                          for r in overload_ab["rows"]}},
                       "wan": {"off": [p["launches"] for p in wan["wan_off"]["nodes"]],
                               "on": [p["launches"] for p in wan["wan_on"]["nodes"]],
-                              "rejoin": wan["rejoin"]["launches"], "membership": wan["membership"]["launches"]}},
+                              "rejoin": wan["rejoin"]["launches"], "membership": wan["membership"]["launches"]},
+                      "deploy": {"traffic": [p["launches"] for p in deploy["nodes"]],
+                                 "after_up": [p["launches_after_up"] for p in deploy["nodes"]]}},
         "card": card,
     }]
     # the RLC kernels' main path: phase 7's node net (the processes' counts)
@@ -6370,6 +6581,7 @@ def main() -> None:
     print(json.dumps({"overload": overload}))
     print(json.dumps({"overload_ab": {k: overload_ab[k] for k in ("rows", "bars", "intake", "path")}}))
     print(json.dumps({"wan": wan}))
+    print(json.dumps({"deploy": deploy}))
     for row in tools:
         print(json.dumps(row))
     print(json.dumps({"kernels": kernels}))

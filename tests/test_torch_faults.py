@@ -648,13 +648,18 @@ class TestPoisonChaos:
         service._batch_buf.append(payload)
 
     async def _episode(self, poison: bool):
+        import numpy as np
+
         from at2_node_tpu_torch.types import ThinTransaction
 
+        # every key from numpy, the same in both episodes: the node keys,
+        # the honest sender and recipient, then one forged sender a round
+        rng = np.random.default_rng(670)
         # catchup.after far past the episode length: the drain loop's
         # ordinary transient-gap kick (single-flight, delayed) can never
         # mature into a session here, so any session observed could only
         # come from the stall-storm path under test
-        cfgs = make_configs(4, catchup=CatchupConfig(after=30.0))
+        cfgs = make_configs(4, seed=671, catchup=CatchupConfig(after=30.0))
         services = [await Service.start(c) for c in cfgs]
         kicks = [0]
         for s in services:
@@ -667,8 +672,8 @@ class TestPoisonChaos:
 
             s.broadcast.stall_handler = wrapped
         try:
-            sender = SignKeyPair.random()
-            recipient = SignKeyPair.random().public
+            sender = SignKeyPair(rng.bytes(32))
+            recipient = SignKeyPair(rng.bytes(32)).public
             total = self.ROUNDS * self.GOOD_PER_ROUND
             seq = 0
             t0 = time.monotonic()
@@ -687,7 +692,7 @@ class TestPoisonChaos:
                     await self._submit(
                         services[0],
                         Payload(
-                            SignKeyPair.random().public,
+                            SignKeyPair(rng.bytes(32)).public,
                             1,
                             ThinTransaction(recipient, 1),
                             b"\x0b" * 64,

@@ -35,11 +35,12 @@ def main() -> int:
     import torch
 
     import chip_smoke as cs
+    from at2_node_tpu_torch import prebuild
     from at2_node_tpu_torch.tools import plane_bench as pb
 
     cs.SENTINEL = cs.StallSentinel()
     card = cs.device_report(torch)
-    cs.build_all()
+    prebuild.build_all(cs.log)
     cs.KERNEL_LANES = (256,)
     kp = cs.kernel_vs_plain(torch, cs.Material(args.seed), np.random.default_rng(args.seed))
     times = {"ed25519_verify": kp["by_lanes"]}

@@ -568,15 +568,8 @@ def device_report(torch) -> str:
 
 
 # -- phase 2 ---------------------------------------------------------------
-
-
-def build_all() -> dict:
-    """The release image's build step (``at2_node_tpu_torch/prebuild.py``):
-    every library built from the sources side by side and loaded; the
-    ptxas figures of each kernel by name."""
-    from at2_node_tpu_torch import prebuild
-
-    return prebuild.build_all(log)
+# the release image's build step, at2_node_tpu_torch/prebuild.py: main()
+# runs its remove_kernel_libs, then its build_libs beside phase 3
 
 
 # -- test material ---------------------------------------------------------
@@ -1650,7 +1643,7 @@ class ServerNet:
     def _spawn(self, i: int, log_mode: str):
         with open(self.tomls[i]) as stdin, open(self.logs[i], log_mode) as out:
             return subprocess.Popen(server_argv("run"), stdin=stdin, stdout=out,
-                                    stderr=subprocess.STDOUT, env=checkout_env())
+                                    stderr=subprocess.STDOUT, env=self.env())
 
     def wait_rpc(self, i: int, t_end: float) -> None:
         while not self._accepts(self.rpc_ports[i]):
@@ -6100,7 +6093,8 @@ async def wan_path(seed: int, card_line: str, kind: str = "cuda", paced_s: float
 
 DEPLOY_COMPOSE = "deploy/docker-compose.torch.yml"  # the port's activation unit
 DEPLOY_MOUNT = "/etc/at2/node.toml"  # where the unit mounts a node's config
-DEPLOY_CHECKPOINT_S = 1.0  # every node's [checkpoint] interval (the runbook's 30 s, cut to the phase)
+DEPLOY_CHECKPOINT_S = 30.0  # every node's [checkpoint] interval, the runbook's
+DEPLOY_QUIET_S = 10.0  # the down starts with no periodic checkpoint due within this
 DEPLOY_GRACE_S = 30.0  # the unit's stop_grace_period
 DEPLOY_CLI_SENDS = 2  # `client send-asset` calls a CLI wallet (two wallets)
 DEPLOY_CLIENTS = 16  # the seeded in-process batch: 16 clients x 64 (SendAssetBatch)
@@ -6138,6 +6132,7 @@ class DeployNet(ServerNet):
         super().__init__(kind, workdir, tables=lambda i: (
             f'[checkpoint]\npath = "{self.checkpoints[i]}"\ninterval = {DEPLOY_CHECKPOINT_S}\n'))
         self.entrypoint = compose_entrypoint()
+        self.spawned = [0.0] * NET_NODES  # each node's last start, wall clock
         self.bin = os.path.join(workdir, "bin")
         os.makedirs(self.bin)
         python = os.path.join(self.bin, "python")
@@ -6160,9 +6155,19 @@ class DeployNet(ServerNet):
         import shlex
 
         command = self.entrypoint[2].replace(DEPLOY_MOUNT, shlex.quote(self.tomls[i]))
+        self.spawned[i] = time.time()
         with open(self.logs[i], log_mode) as out:
             return subprocess.Popen([*self.entrypoint[:2], command], stdin=subprocess.DEVNULL, stdout=out,
                                     stderr=subprocess.STDOUT, env=self.env(), cwd=repo_root())
+
+    def last_checkpoint(self, i: int) -> float:
+        """The wall time of node i's last checkpoint write (the file's
+        mtime), or of its start while it has written none since: its next
+        periodic write comes no earlier than this plus the interval."""
+        try:
+            return max(os.path.getmtime(self.checkpoints[i]), self.spawned[i])
+        except FileNotFoundError:
+            return self.spawned[i]
 
     def run_cli(self, argv: list, text: str = "") -> str:
         """One CLI command run to its end with ``text`` on its input; its
@@ -6231,18 +6236,29 @@ async def deploy_run(net: DeployNet, rng, label: str, card, kind: str, n_clients
         f"{len(replay)} accounts equal the python-int replay on every node; verify kernel launches a node "
         f"{traffic_launches}")
 
-    # down: SIGTERM to every unit at once, as `docker compose down` on each host
+    # down: SIGTERM to every unit at once, as `docker compose down` on each
+    # host, at an instant with no node's periodic checkpoint due within
+    # DEPLOY_QUIET_S, so that a write seen after it is the final one
     import signal
 
+    t_quiet = time.perf_counter()
+    while True:
+        due = [net.last_checkpoint(i) + DEPLOY_CHECKPOINT_S for i in range(n)]
+        if min(due) - time.time() > DEPLOY_QUIET_S:
+            break
+        check(time.perf_counter() - t_quiet < DEPLOY_CHECKPOINT_S + DEPLOY_GRACE_S,
+              f"{label}: a periodic checkpoint due at {min(due):.3f} was never written")
+        await asyncio.sleep(0.05)
+    quiet_s = time.perf_counter() - t_quiet
     t_down_wall, t_down = time.time(), time.perf_counter()
     for p in net.procs:
         p.send_signal(signal.SIGTERM)
         net.terminated.add(p)
-    down_s = [None] * n
+    down_s, down_wall = [None] * n, [None] * n
     while any(s is None for s in down_s) and time.perf_counter() - t_down < DEPLOY_GRACE_S:
         for i, p in enumerate(net.procs):
             if down_s[i] is None and p.poll() is not None:
-                down_s[i] = time.perf_counter() - t_down
+                down_s[i], down_wall[i] = time.perf_counter() - t_down, time.time()
         time.sleep(0.02)
     check(all(s is not None for s in down_s),
           f"{label}: nodes {[i for i, s in enumerate(down_s) if s is None]} still ran {DEPLOY_GRACE_S:.0f} s "
@@ -6252,11 +6268,15 @@ async def deploy_run(net: DeployNet, rng, label: str, card, kind: str, n_clients
     for i, path in enumerate(net.checkpoints):
         check(os.path.exists(path) and os.path.getmtime(path) >= t_down_wall,
               f"{label} node {i}: no checkpoint written at its stop ({path})")
+        check(down_wall[i] < due[i], f"{label} node {i} exited {down_wall[i] - due[i]:.3f} s after its next "
+              f"periodic checkpoint was due: its last write cannot be told from a periodic one")
         snap = rejoin_frontier(path)
         check(snap == replay, f"{label} node {i}: its checkpoint holds {len(snap)} accounts that differ from the "
               f"replay's {len(replay)}")
-    log(f"{label}: down: every node exited 0 on SIGTERM in {[round(s, 3) for s in down_s]} s (the unit "
-        f"allows {DEPLOY_GRACE_S:.0f} s), each checkpoint written at its stop and equal to the replay")
+    log(f"{label}: down (after {quiet_s:.3f} s waiting for a window with no periodic checkpoint due "
+        f"within {DEPLOY_QUIET_S:.0f} s, interval {DEPLOY_CHECKPOINT_S:.0f} s): every node exited 0 on SIGTERM "
+        f"in {[round(s, 3) for s in down_s]} s (the unit allows {DEPLOY_GRACE_S:.0f} s), each checkpoint "
+        f"written at its stop and equal to the replay")
 
     # up again from the same configs and data directories
     t_up = time.perf_counter()

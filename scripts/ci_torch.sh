@@ -23,11 +23,16 @@ case "$tier" in
   *) echo "usage: scripts/ci_torch.sh [fast|all|gpu]" >&2; exit 2 ;;
 esac
 
+# this run's scratch files, under TMPDIR: two checkouts gating at once
+# never read each other's
+work="$(mktemp -d)"
+trap 'rm -rf "$work"' EXIT
+export CI_TORCH_WORK="$work"
+
 if [ "$tier" = "gpu" ]; then
   # the card's smoke: every kernel held against its plain version and
   # every served path driven, deploy/README_torch.md's runbook included
-  smoke_log="$(mktemp)"
-  trap 'rm -f "$smoke_log"' EXIT
+  smoke_log="$work/chip_smoke.log"
   set +e
   python3 chip_smoke.py | tee "$smoke_log"
   rc=${PIPESTATUS[0]}
@@ -490,11 +495,12 @@ EOF
 if [ "$(nproc)" -ge 2 ]; then
   python -m at2_node_tpu_torch.tools.plane_bench --shards-grid 1,2 --cores 2 \
       --nodes 3 --txs 300 --grid-repeat 2 --no-bank --verifier cpu \
-      --out /tmp/_plane_shards_smoke_torch.json
+      --out "$work/plane_shards_smoke.json"
   python - <<'EOF'
 import json
+import os
 
-doc = json.load(open("/tmp/_plane_shards_smoke_torch.json"))
+doc = json.load(open(os.path.join(os.environ["CI_TORCH_WORK"], "plane_shards_smoke.json")))
 speedup = doc["summary"]["peak_speedup_vs_1"]
 assert speedup >= 1.5, (
     f"sharded plane speedup {speedup}x < 1.5x on 2 cores"
@@ -542,11 +548,12 @@ EOF
 if [ "$(nproc)" -ge 2 ]; then
   python -m at2_node_tpu_torch.tools.plane_bench --shards-grid 1,2 --cores 2 \
       --executor process --nodes 3 --txs 300 --grid-repeat 2 --no-bank \
-      --verifier cpu --out /tmp/_plane_process_smoke_torch.json
+      --verifier cpu --out "$work/plane_process_smoke.json"
   python - <<'EOF'
 import json
+import os
 
-doc = json.load(open("/tmp/_plane_process_smoke_torch.json"))
+doc = json.load(open(os.path.join(os.environ["CI_TORCH_WORK"], "plane_process_smoke.json")))
 speedup = doc["summary"]["peak_speedup_vs_1"]
 assert speedup >= 1.5, (
     f"process-mode plane speedup {speedup}x < 1.5x on 2 cores"
@@ -666,13 +673,19 @@ echo "== bench-regression sentry gate =="
 # against its nearest COMPARABLE capture (tunnel/device state must
 # match) and exits 1 on a beyond-band drop, 2 on a schema violation.
 # Determinism contract: two runs over the same artifacts are
-# byte-identical.
-python -m at2_node_tpu_torch.tools.regress --dir . > /tmp/_regress_torch1.txt
-python -m at2_node_tpu_torch.tools.regress --dir . > /tmp/_regress_torch2.txt
-cmp /tmp/_regress_torch1.txt /tmp/_regress_torch2.txt || {
+# byte-identical. The port's bank is its tools' OUT_DIR, the git-ignored
+# at2_node_tpu_torch/build/bench (the repo root's artifacts are the TPU's
+# record). On a fresh checkout it holds what this run banked (the
+# obs-overhead gate's row), so there the gate checks that bank's schema
+# and determinism; a drop is judged only against rows that earlier runs
+# in the same checkout banked.
+bank=at2_node_tpu_torch/build/bench
+python -m at2_node_tpu_torch.tools.regress --dir "$bank" > "$work/regress1.txt"
+python -m at2_node_tpu_torch.tools.regress --dir "$bank" > "$work/regress2.txt"
+cmp "$work/regress1.txt" "$work/regress2.txt" || {
   echo "regression sentry output not deterministic" >&2; exit 1;
 }
-cat /tmp/_regress_torch1.txt
+cat "$work/regress1.txt"
 
 if [ "$tier" = "all" ]; then
   echo "== native sanitizers (TSAN + ASAN) =="

@@ -178,6 +178,26 @@ def test_cpu_gates_ask_for_the_host_verifier():
     assert 'make_net_configs(3, port_counter(28400),\n                            verifier=VerifierConfig(kind="cpu"))' in text
 
 
+def test_ci_torch_writes_its_scratch_files_under_a_directory_of_its_own():
+    """Two checkouts gating at once never read each other's files: the
+    script's scratch is one ``mktemp -d`` a run (under TMPDIR), and it
+    names no fixed path under /tmp."""
+    text = _read("scripts/ci_torch.sh")
+    assert "/tmp/" not in text
+    assert 'work="$(mktemp -d)"' in text and "trap 'rm -rf \"$work\"' EXIT" in text
+
+
+def test_the_regression_sentry_reads_the_port_bank():
+    """The sentry judges what the port's tools bank (their OUT_DIR), not
+    the TPU's artifacts at the repo's root."""
+    from at2_node_tpu_torch.tools._common import OUT_DIR
+
+    body = dict(_gates(CI_TORCH))["bench-regression sentry gate"]
+    bank = re.search(r"^bank=(\S+)$", body, re.M).group(1)
+    assert os.path.join(REPO, bank) == OUT_DIR
+    assert re.findall(r"tools\.regress --dir (\S+)", body) == ['"$bank"'] * 2
+
+
 def test_ci_torch_refuses_an_unknown_tier():
     proc = subprocess.run([CI_TORCH, "nightly"], capture_output=True, text=True, timeout=60)
     assert proc.returncode == 2 and "usage" in proc.stderr

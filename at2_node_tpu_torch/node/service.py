@@ -369,7 +369,10 @@ class Service(At2Servicer):
         # leftovers: (key, arrival, tiebreak, payload) carried across batches
         self._heap: List[tuple] = []
         self._push_count = 0  # monotonic heap tiebreaker
-        self._heap_keys: set = set()  # keys currently in _heap (dedup)
+        self._heap_keys: set = set()  # keys pending, _heap or _parked (dedup)
+        # leftovers a pass could not commit, by sender (see _park)
+        self._parked: Dict[bytes, list] = {}
+        self._parked_n = 0
         # the delivery loop, catchup task, and close() all drain the heap;
         # serialize the fixpoint passes so two drains never interleave
         self._drain_lock = asyncio.Lock()
@@ -460,7 +463,7 @@ class Service(At2Servicer):
         )
         self.registry.gauge(
             "pending", "payloads parked in the commit retry heap",
-            fn=lambda: len(self._heap),
+            fn=self._pending_count,
         )
         self.registry.gauge(
             "history_retained", "payloads retained for peer catchup",
@@ -916,7 +919,7 @@ class Service(At2Servicer):
                 except asyncio.QueueEmpty:
                     break
                 self._push_pending(p, now)
-        if self._heap:
+        if self._pending_count():
             await self._drain_to_fixpoint()
         # Final snapshot LAST — ingress, delivery, and broadcast are all
         # stopped, so no commit can land after (and be missing from) it.
@@ -1199,7 +1202,7 @@ class Service(At2Servicer):
     def _commit_tail_age(self) -> float:
         """Age of the oldest payload parked in the commit retry heap —
         the commit-tail-lag pressure signal."""
-        oldest = min((e[1] for e in self._heap), default=None)
+        oldest = self._oldest_pending()
         if oldest is None:
             return 0.0
         return max(0.0, self.clock.monotonic() - oldest)
@@ -1234,7 +1237,7 @@ class Service(At2Servicer):
         """Commit-stall predicate shared by /healthz and the SLO probe:
         some pending payload has been gap-blocked past the catchup
         trigger horizon."""
-        oldest = min((e[1] for e in self._heap), default=None)
+        oldest = self._oldest_pending()
         stall_horizon = max(self.config.catchup.after * 2, 5.0)
         return oldest is not None and now - oldest > stall_horizon
 
@@ -1248,7 +1251,7 @@ class Service(At2Servicer):
                 "t": now,
                 "committed": self.committed,
                 "rejected": self.admission_stats["rejected_at_ingress"],
-                "pending": len(self._heap),
+                "pending": self._pending_count(),
                 "stalled": self._stalled_now(now),
                 "latency": self._slo_hist.buckets(),
             }
@@ -1612,7 +1615,7 @@ class Service(At2Servicer):
                 str(sid): code for sid, code in sorted(plane_crashed.items())
             },
             "divergence": self.auditor.divergence,
-            "pending": len(self._heap),
+            "pending": self._pending_count(),
             "committed": self.committed,
             "uptime_s": round(now - self._started_at, 3),
         }
@@ -1728,6 +1731,61 @@ class Service(At2Servicer):
                 logger.exception("store parked append failed")
         return True
 
+    # A pass leaves a payload pending only when its sender's sequence gate
+    # refuses it, and no pass after that can act on it until its sender's
+    # last sequence moves, another payload of the sender arrives, or its
+    # TTL runs out. Such leftovers wait in ``_parked``, grouped by sender
+    # as [the sender's last sequence, the oldest arrival, entries], and a
+    # pass takes up only the groups that one of those three has touched:
+    # the passes act exactly as if every entry were visited, at a cost
+    # that does not grow with the payloads parked behind shed sequences.
+
+    def _pending_count(self) -> int:
+        return len(self._heap) + self._parked_n
+
+    def _oldest_pending(self) -> Optional[float]:
+        """Arrival time of the oldest pending payload, or None."""
+        return min(
+            [e[1] for e in self._heap]
+            + [group[1] for group in self._parked.values()],
+            default=None,
+        )
+
+    def _unpark(
+        self, parked: dict, batch: List[tuple], now: float
+    ) -> List[tuple]:
+        """Take out of ``parked`` the groups this pass must visit."""
+        if not parked:
+            return []
+        arriving = {entry[0][1] for entry in batch}
+        last = self.accounts.last_sequence_nowait
+        touched = [
+            sender
+            for sender, (seq, oldest, _) in parked.items()
+            if sender in arriving
+            or last(sender) != seq
+            or now - oldest > TRANSACTION_TTL
+        ]
+        out: List[tuple] = []
+        for sender in touched:
+            out.extend(parked.pop(sender)[2])
+        return out
+
+    def _park(self, parked: dict, retry: List[tuple]) -> None:
+        """Put a pass's leftovers with the groups it did not visit, and
+        make them the pending set's parked part again."""
+        last = self.accounts.last_sequence_nowait
+        for entry in retry:
+            sender = entry[0][1]
+            group = parked.get(sender)
+            if group is None:
+                parked[sender] = [last(sender), entry[1], [entry]]
+            else:
+                group[1] = min(group[1], entry[1])
+                group[2].append(entry)
+        self._parked = parked
+        self._parked_n = sum(len(group[2]) for group in parked.values())
+
     async def _delivery_loop(self) -> None:
         queue = self.broadcast.delivered
         while True:
@@ -1759,13 +1817,16 @@ class Service(At2Servicer):
             # mutating the list this pass is iterating (a heappush mid-
             # iteration could sift an entry behind the iterator, and the
             # end-of-pass rebuild would silently discard it forever).
-            batch = self._heap
-            if not batch:
+            # The parked groups leave with it, so that readers see during
+            # the pass what they would see of the reference's one list.
+            if not self._heap and not self._parked_n:
                 break
-            self._heap = []
+            batch, parked = self._heap, self._parked
+            self._heap, self._parked, self._parked_n = [], {}, 0
+            now = self.clock.monotonic()
+            batch.extend(self._unpark(parked, batch, now))
             before = len(batch)
             batch.sort()
-            now = self.clock.monotonic()
             catchup_keys = self._catchup_keys
 
             def _apply_pass(accounts) -> tuple:
@@ -1899,16 +1960,17 @@ class Service(At2Servicer):
                 # cancellation can interrupt the DRAIN but never split a
                 # commit from its record.
                 await asyncio.shield(self._commit_tail(commits, ring_ops))
-            # merge the leftovers with anything that arrived mid-pass; no
-            # awaits between here and the key rebuild, so the set and the
-            # heap cannot diverge
+            # park the leftovers beside anything that arrived mid-pass; no
+            # awaits between here and the key update, so the set and the
+            # pending entries cannot diverge
             arrivals = len(self._heap)
-            self._heap.extend(retry)
-            heapq.heapify(self._heap)
-            self._heap_keys = {entry[0] for entry in self._heap}
+            gone = {entry[0] for entry in batch}
+            gone.difference_update(entry[0] for entry in retry)
+            self._park(parked, retry)
+            self._heap_keys -= gone
             self._catchup_keys &= self._heap_keys  # prune committed/dropped
             progressed = len(retry) < before
-            if not self._heap or not (progressed or arrivals):
+            if not self._pending_count() or not (progressed or arrivals):
                 break
         # Anything still pending after a fixpoint pass is gap-blocked: its
         # predecessor is not in flight anywhere local, so if it doesn't
@@ -1922,7 +1984,7 @@ class Service(At2Servicer):
         cfg = self.config.catchup
         if (
             cfg.enabled
-            and self._heap
+            and self._pending_count()
             and not self._closing
             and self.mesh is not None
             and self.mesh.peers
@@ -2305,9 +2367,8 @@ class Service(At2Servicer):
                 )
                 no_progress = 0 if progressed else no_progress + 1
                 now = self.clock.monotonic()
-                gap_remains = any(
-                    now - entry[1] > cfg.after for entry in self._heap
-                )
+                oldest = self._oldest_pending()
+                gap_remains = oldest is not None and now - oldest > cfg.after
                 if applied == 0 and not gap_remains and (
                     responses > 0 or attempts >= self._CATCHUP_MIN_ATTEMPTS
                 ):

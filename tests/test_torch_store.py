@@ -562,8 +562,9 @@ def _stall_report(services) -> list:
         snap = s.registry.snapshot()
         lines.append(f"node {i}: plane {s.broadcast.plane_info()}; "
                      + ", ".join(f"{k} {snap.get(k)}" for k in chip_smoke.STALL_KEYS))
-        heap = sorted((p.sender.hex()[:12], p.sequence) for *_, p in s._heap)[:16]
-        lines.append(f"node {i}: commit heap {len(s._heap)} {heap}")
+        pending = s._heap + [e for group in s._parked.values() for e in group[2]]
+        heap = sorted((p.sender.hex()[:12], p.sequence) for *_, p in pending)[:16]
+        lines.append(f"node {i}: commit heap {len(pending)} {heap}")
         lines.append(f"node {i}: part-delivered batch slots {s.broadcast.part_delivered_batches()}")
         lines.append(f"node {i}: watermarks live {s.broadcast.export_watermarks()}, "
                      f"store {s.store.watermarks if s.store is not None else None}")

@@ -96,6 +96,7 @@ import numpy as np
 
 from ..crypto.keys import SignKeyPair
 from ..net.peers import Mesh, Peer
+from ..obs.profiler import NO_SPANS
 from .messages import (
     BATCH,
     BATCH_ECHO,
@@ -452,6 +453,7 @@ class Broadcast:
     recorder = None
     # same contract for the plane time-accounting seam (obs/profiler.py)
     phases = None
+    spans = NO_SPANS
     # same contract for the [wan] echo/ready phase-piggyback knob
     overlap_ready = False
 
@@ -712,17 +714,26 @@ class Broadcast:
         exact iteration this monolithic pass performs — while this
         method keeps serving the monolithic plane and the threaded
         per-shard pass unchanged."""
-        ph = self.phases
+        ph, sp = self.phases, self.spans
         t_gc = ph.t() if ph is not None else 0
-        budget = [RETRANSMIT_BUDGET_PER_PASS]
-        stalled_past_horizon = False
-        for slot in list(self._slots):
-            if self._gc_tx_slot(slot, now, budget):
-                stalled_past_horizon = True
-        for slot in list(self._batch_slots):
-            if self._gc_batch_slot(slot, now, budget):
-                stalled_past_horizon = True
-        self._gc_resolve_stall(now, stalled_past_horizon)
+        h = (
+            sp.begin("at2.broadcast.slot_gc", len(self._slots) + len(self._batch_slots))
+            if sp.on
+            else None
+        )
+        try:
+            budget = [RETRANSMIT_BUDGET_PER_PASS]
+            stalled_past_horizon = False
+            for slot in list(self._slots):
+                if self._gc_tx_slot(slot, now, budget):
+                    stalled_past_horizon = True
+            for slot in list(self._batch_slots):
+                if self._gc_batch_slot(slot, now, budget):
+                    stalled_past_horizon = True
+            self._gc_resolve_stall(now, stalled_past_horizon)
+        finally:
+            if h is not None:
+                sp.end(h)
         if ph is not None:
             ph.add("slot_gc", t_gc)
 
@@ -968,15 +979,20 @@ class Broadcast:
             # the admission pre-checks inside _process_chunk chain onto
             # it. begin/end_plane (not a bare add_ns) so a cycle that
             # re-enters the plane in-context accounts its span ONCE.
-            ph = self.phases
+            ph, sp = self.phases, self.spans
             t_plane = ph.begin_plane() if ph is not None else 0
             t0 = ph.t() if ph is not None else 0
+            # at2.broadcast.rx_decode: the parse and the pre-checks, one
+            # synchronous stretch that _process_chunk closes
+            h = sp.begin("at2.broadcast.rx_decode", len(chunk)) if sp.on else None
             try:
                 msgs = self._parse_chunk(chunk)
                 if ph is not None:
                     ph.add("rx_decode", t0)
-                await self._process_chunk(msgs)
+                await self._process_chunk(msgs, h)
             except Exception:
+                if h is not None:
+                    sp.end(h)  # a second end is a no-op
                 logger.exception("broadcast worker error")
             if ph is not None:
                 ph.end_plane(t_plane)
@@ -1032,12 +1048,14 @@ class Broadcast:
                     )
         return out
 
-    async def _process_chunk(self, chunk) -> None:
+    async def _process_chunk(self, chunk, span=None) -> None:
         """Three stages (module docstring): sync pre-checks -> one bulk
         verify -> sync state transitions (re-validated against races).
         Actions carry how many verify items they claimed: a TxBatch puts
-        1 (origin) + count (client) signatures into the SAME bulk call."""
-        ph = self.phases
+        1 (origin) + count (client) signatures into the SAME bulk call.
+        ``span`` is the caller's open rx_decode span, closed here before
+        the verify; the transitions run in an at2.broadcast.apply span."""
+        ph, sp = self.phases, self.spans
         t0 = ph.t() if ph is not None else 0
         to_verify = []
         actions = []  # (kind, msg, n_sigs)
@@ -1046,12 +1064,19 @@ class Broadcast:
         # admission pre-checks account to rx_decode (receive-side cost)
         if ph is not None:
             t0 = ph.add("rx_decode", t0)
+        if span is not None:
+            sp.end(span)
         if not to_verify:
             return
         results = await self.verifier.verify_many(to_verify)
         if ph is not None:
             ph.add("verify_wait", t0)
-        self._apply_actions(actions, results)
+        h = sp.begin("at2.broadcast.apply", len(actions)) if sp.on else None
+        try:
+            self._apply_actions(actions, results)
+        finally:
+            if h is not None:
+                sp.end(h)
 
     def _pre_msg(self, peer, msg, to_verify: list, actions: list) -> None:
         """Stage 1 for ONE message: synchronous admission pre-checks and

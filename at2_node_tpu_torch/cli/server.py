@@ -25,6 +25,7 @@ import sys
 
 from ..crypto.keys import ExchangeKeyPair, SignKeyPair
 from ..node.config import Config, VerifierConfig
+from ..obs.profiler import BusySelector
 
 
 def maybe_initialize() -> bool:
@@ -66,6 +67,8 @@ def cmd_run(args: argparse.Namespace) -> int:
     )
     maybe_initialize()
     config = Config.load(sys.stdin)
+    # the loop's selector, timed: /metrics event_loop_busy_ns
+    selector = BusySelector()
 
     async def main() -> None:
         import signal
@@ -73,6 +76,7 @@ def cmd_run(args: argparse.Namespace) -> int:
         from ..node.service import Service
 
         service = await Service.start(config)
+        service.loop_selector = selector
         # SIGTERM (systemd/k8s stop, test harness kill) must shut down
         # gracefully like SIGINT: quiesce, drain deliveries, write the
         # final checkpoint. Default SIGTERM disposition would kill the
@@ -104,7 +108,7 @@ def cmd_run(args: argparse.Namespace) -> int:
                 raise exc  # server crashed: surface it, exit nonzero
 
     try:
-        asyncio.run(main())
+        asyncio.run(main(), loop_factory=lambda: asyncio.SelectorEventLoop(selector))
     except KeyboardInterrupt:
         pass
     except OSError as exc:

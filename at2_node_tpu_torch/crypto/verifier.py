@@ -40,6 +40,7 @@ from typing import Callable, List, Optional, Protocol, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..obs.profiler import NO_SPANS
 from ..obs.registry import Histogram
 from ..ops import aggregate as agg
 from ..ops import cuda_rlc, cuda_verify
@@ -198,19 +199,23 @@ class CpuVerifier:
 class _ChunkSink:
     """Result collector shared by every signature of one enqueued chunk:
     one asyncio future per chunk, not one per signature, which keeps the
-    per-message future/gather overhead off the event loop."""
+    per-message future/gather overhead off the event loop.
+    ``resolved_at`` is the verifier clock's reading when the future
+    resolved."""
 
-    __slots__ = ("future", "results", "remaining")
+    __slots__ = ("future", "results", "remaining", "resolved_at")
 
     def __init__(self, loop: asyncio.AbstractEventLoop, n: int) -> None:
         self.future: asyncio.Future = loop.create_future()
         self.results: List[bool] = [False] * n
         self.remaining = n
+        self.resolved_at = 0.0
 
-    def set(self, idx: int, ok: bool) -> None:
+    def set(self, idx: int, ok: bool, now: float) -> None:
         self.results[idx] = ok
         self.remaining -= 1
         if self.remaining == 0 and not self.future.done():
+            self.resolved_at = now
             self.future.set_result(self.results)
 
     def fail(self, exc: BaseException) -> None:
@@ -571,9 +576,19 @@ class CudaBatchVerifier:
     thread enters the verifier's device and uses the verifier's streams.
     ``device`` None means cuda:0 and raises without a GPU; ``device="cpu"``
     runs the plain PyTorch version (tests).
+
+    The seam's round trip, split into three windowed sums (``stats()``),
+    each with its count: ``seam_queue_s`` / ``seam_taken``, a signature's
+    wait from enqueue to being taken by a flush; ``seam_pipeline_s`` /
+    ``seam_resolved``, from being taken to having its verdict (in-flight
+    slot, prep, launch, device, finish); ``seam_handback_s`` /
+    ``seam_calls``, a ``verify_many`` call's wait from its last verdict to
+    the caller running again. ``phases`` and ``spans`` are the owning
+    node's (``verifier_flush``; the ``at2.verifier.*`` spans).
     """
 
     PIPELINE_DEPTH = 4
+    spans = NO_SPANS
 
     def __init__(
         self,
@@ -633,11 +648,17 @@ class CudaBatchVerifier:
         self.signatures_verified = 0
         self.total_padding = 0
         self.total_dispatch_s = 0.0
-        self.last_dispatch_s = 0.0
         self.total_prep_s = 0.0
         self.total_launch_s = 0.0
         self.total_finish_s = 0.0
         self.queue_peak = 0
+        self.flushes = 0
+        self.seam_queue_s = 0.0
+        self.seam_taken = 0
+        self.seam_pipeline_s = 0.0
+        self.seam_resolved = 0
+        self.seam_handback_s = 0.0
+        self.seam_calls = 0
         self.h_queue_wait = Histogram(
             "queue_wait", "enqueue -> dispatch wait of a batch's oldest item"
         )
@@ -650,6 +671,7 @@ class CudaBatchVerifier:
         # optional flight recorder, duck-typed (``record(kind, fields)``):
         # flush decisions (take / depth / bucket) explain latency spikes
         self.recorder = None
+        self.phases = None
 
     def stats(self) -> dict:
         """Operator counters: batch occupancy, padding, stage latencies."""
@@ -668,11 +690,16 @@ class CudaBatchVerifier:
             # per-batch prep->results latency (stages overlap across
             # batches, so this is not additive with throughput)
             "avg_dispatch_ms": (1e3 * self.total_dispatch_s / n_b) if n_b else 0.0,
-            "last_dispatch_ms": 1e3 * self.last_dispatch_s,
             # stage means include their executor-queue wait
             "prep_ms_avg": (1e3 * self.total_prep_s / n_b) if n_b else 0.0,
             "launch_ms_avg": (1e3 * self.total_launch_s / n_b) if n_b else 0.0,
             "finish_ms_avg": (1e3 * self.total_finish_s / n_b) if n_b else 0.0,
+            "seam_queue_s": self.seam_queue_s,
+            "seam_taken": self.seam_taken,
+            "seam_pipeline_s": self.seam_pipeline_s,
+            "seam_resolved": self.seam_resolved,
+            "seam_handback_s": self.seam_handback_s,
+            "seam_calls": self.seam_calls,
             **self.h_queue_wait.flat("queue_wait"),
             "mode": _MODE_CODES[self.router.mode],
             "mode_name": self.router.mode,
@@ -819,6 +846,8 @@ class CudaBatchVerifier:
             # verifier at max_queue with work nobody wants)
             await self._evict_sinks(set(sinks))
             raise
+        self.seam_handback_s += self._clock.monotonic() - max(s.resolved_at for s in sinks)
+        self.seam_calls += 1
         out: List[bool] = []
         for results in chunk_results:
             out.extend(results)
@@ -851,19 +880,38 @@ class CudaBatchVerifier:
                     break
             if not self._queue:
                 continue
+            ph, sp = self.phases, self.spans
+            t0 = ph.t() if ph is not None else 0
             take = self._take_for_flush()
-            if self.recorder is not None:
-                self.recorder.record(
-                    "vflush",
-                    (take, len(self._queue), self._bucket_for(take)),
+            self.flushes += 1
+            fid = self.flushes
+            n = min(take, len(self._queue))
+            # the span ends before _release, which can suspend while
+            # callers wait for queue room
+            h = sp.begin("at2.verifier.flush", fid, n, self._bucket_for(n)) if sp.on else None
+            try:
+                if self.recorder is not None:
+                    self.recorder.record(
+                        "vflush",
+                        (take, len(self._queue), self._bucket_for(take)),
+                    )
+                batch, self._queue = (
+                    self._queue[:take],
+                    self._queue[take:],
                 )
-            batch, self._queue = (
-                self._queue[:take],
-                self._queue[take:],
-            )
+                t_take = self._clock.monotonic()
+                self.seam_queue_s += n * t_take - sum(p.enqueued_at for p in batch)
+                self.seam_taken += n
+            finally:
+                if h is not None:
+                    sp.end(h)
             try:
                 await self._release(len(batch))
-                await self._dispatch(batch)
+                # flush decision only: pipeline latency past this point
+                # is already measured by h_dispatch
+                if ph is not None:
+                    ph.add("verifier_flush", t0)
+                await self._dispatch(batch, t_take, fid)
             except BaseException as exc:
                 # once popped from _queue, close()'s sweep can no longer
                 # see this batch — a cancellation landing in the _release
@@ -1004,10 +1052,27 @@ class CudaBatchVerifier:
         for p in batch:
             p.sink.fail(err)
 
-    async def _dispatch(self, batch: List[_Pending]) -> None:
+    def _in_span(self, name: str, fid: int, fn):
+        """``fn``, run inside span ``name`` of flush ``fid`` on the stage
+        thread that calls it, while the node traces."""
+        sp = self.spans
+        if not sp.on:
+            return fn
+
+        def spanned(*args):
+            h = sp.begin(name, fid)
+            try:
+                return fn(*args)
+            finally:
+                sp.end(h)
+
+        return spanned
+
+    async def _dispatch(self, batch: List[_Pending], t_take: float, fid: int) -> None:
         """Prep and launch this batch, then hand completion to a background
         task so the flusher can pipeline the next batch while the device
-        works; at most PIPELINE_DEPTH batches run past launch."""
+        works; at most PIPELINE_DEPTH batches run past launch. ``t_take``
+        is when the flusher took the batch, ``fid`` its flush id."""
         bucket = self._bucket_for(len(batch))
         loop = asyncio.get_running_loop()
         pks = [p.public_key for p in batch]
@@ -1029,19 +1094,25 @@ class CudaBatchVerifier:
         try:
             if staged:
                 prepared = await loop.run_in_executor(
-                    self._prep_pool, self._prep_rlc if rlc else self._prep, pks, msgs, sigs, bucket
+                    self._prep_pool,
+                    self._in_span("at2.verifier.prep", fid, self._prep_rlc if rlc else self._prep),
+                    pks, msgs, sigs, bucket,
                 )
                 t1 = self._clock.monotonic()
                 self.total_prep_s += t1 - t0
                 self.h_prep.observe(t1 - t0)
                 handle = await loop.run_in_executor(
-                    self._device_pool, self._launch_rlc if rlc else self._launch, prepared
+                    self._device_pool,
+                    self._in_span("at2.verifier.launch", fid, self._launch_rlc if rlc else self._launch),
+                    prepared,
                 )
                 t2 = self._clock.monotonic()
                 self.total_launch_s += t2 - t1
                 self.h_launch.observe(t2 - t1)
                 finish = loop.run_in_executor(
-                    self._finish_pool, self._finish_rlc if rlc else self._finish, handle, len(batch)
+                    self._finish_pool,
+                    self._in_span("at2.verifier.finish", fid, self._finish_rlc if rlc else self._finish),
+                    handle, len(batch),
                 )
             else:
                 # the subclass's _run_batch, whole, on the device thread (no
@@ -1055,7 +1126,7 @@ class CudaBatchVerifier:
             if isinstance(exc, asyncio.CancelledError):
                 raise
             return
-        task = loop.create_task(self._complete(batch, bucket, finish, t0, rlc))
+        task = loop.create_task(self._complete(batch, bucket, finish, t0, t_take, rlc))
         self._completions.add(task)
         task.add_done_callback(self._completions.discard)
 
@@ -1084,7 +1155,7 @@ class CudaBatchVerifier:
             self.router.observe([(p.public_key, bool(ok)) for p, ok in zip(batch, results)])
         return results
 
-    async def _complete(self, batch, bucket, finish, t0, rlc=False) -> None:
+    async def _complete(self, batch, bucket, finish, t0, t_take, rlc=False) -> None:
         t_fin = self._clock.monotonic()
         try:
             results = await finish
@@ -1100,14 +1171,15 @@ class CudaBatchVerifier:
         t_done = self._clock.monotonic()
         self.total_finish_s += t_done - t_fin
         self.h_finish.observe(t_done - t_fin)
-        self.last_dispatch_s = t_done - t0
-        self.total_dispatch_s += self.last_dispatch_s
-        self.h_dispatch.observe(self.last_dispatch_s)
+        self.total_dispatch_s += t_done - t0
+        self.h_dispatch.observe(t_done - t0)
         self.batches_dispatched += 1
         self.signatures_verified += len(batch)
         self.total_padding += bucket - len(batch)
+        self.seam_pipeline_s += len(batch) * (t_done - t_take)
+        self.seam_resolved += len(batch)
         for p, ok in zip(batch, results):
-            p.sink.set(p.idx, bool(ok))
+            p.sink.set(p.idx, bool(ok), t_done)
 
     async def close(self) -> None:
         self._closed = True

@@ -72,9 +72,11 @@ from ..net.peers import Mesh, Peer
 from ..net.webmux import PortMux
 from ..obs.audit import FleetAuditor
 from ..obs.profiler import (
+    NO_SPANS,
     EventLoopLagProbe,
     PhaseAccounting,
     StackSampler,
+    TraceSpans,
     build_info,
 )
 from ..obs.recorder import FlightRecorder
@@ -186,34 +188,14 @@ def _enable_stats_logging() -> None:
         stats_logger.propagate = False
 
 
-def _start_profile(device):
-    """Start a ``torch.profiler`` trace of this process: CPU activity, and
-    CUDA activity (the verifier's kernel launches and copies) when the
-    verifier runs on the card."""
-    import torch
-
-    activities = [torch.profiler.ProfilerActivity.CPU]
-    if getattr(device, "type", None) == "cuda":
-        activities.append(torch.profiler.ProfilerActivity.CUDA)
-    prof = torch.profiler.profile(activities=activities)
-    prof.start()
-    return prof
-
-
-def _stop_profile(prof, profile_dir: str) -> None:
-    """Stop the trace and export it as a Chrome trace into ``profile_dir``
-    (one file per process)."""
-    import os
-
-    prof.stop()
-    os.makedirs(profile_dir, exist_ok=True)
-    prof.export_chrome_trace(
-        os.path.join(profile_dir, f"at2-node-{os.getpid()}.trace.json")
-    )
-
-
 class Service(At2Servicer):
     """One AT2 node. `await Service.start(config)`, then `serve_forever`."""
+
+    # the node's torch.profiler trace and its spans while profile_dir
+    # traces (obs/profiler.py TraceSpans); the shared no-op otherwise
+    spans = NO_SPANS
+    # the served loop's BusySelector (cli/server.py), read by /metrics
+    loop_selector = None
 
     def __init__(self, config: Config, clock=None) -> None:
         from ..clock import SYSTEM_CLOCK
@@ -363,7 +345,6 @@ class Service(At2Servicer):
         self._delivery_task: Optional[asyncio.Task] = None
         self._stats_task: Optional[asyncio.Task] = None
         self._checkpoint_task: Optional[asyncio.Task] = None
-        self._profiler = None  # torch.profiler.profile while profile_dir traces
         self._owns_verifier = True
         self.committed = 0  # payloads committed to the ledger
         # leftovers: (key, arrival, tiebreak, payload) carried across batches
@@ -470,6 +451,14 @@ class Service(At2Servicer):
             fn=lambda: len(self.history),
         )
         self.registry.register_provider("verifier_", self._verifier_stats)
+        self.registry.register_provider(
+            "event_loop_",
+            lambda: (
+                {"busy_ns": self.loop_selector.busy_ns}
+                if self.loop_selector is not None
+                else {}
+            ),
+        )
         # verifier per-stage latency as REAL histograms (bucket/sum/count
         # on /metrics — the plain provider above only carries its stats()
         # spot values), so external scrapers can aggregate across nodes
@@ -782,9 +771,17 @@ class Service(At2Servicer):
                     )
                 )
             if obs.profile_dir:
-                service._profiler = _start_profile(
+                # CPU activity, and CUDA activity (the verifier's launches
+                # and copies) when the verifier runs on the card; the
+                # spans go to the monolithic plane and to the verifier,
+                # whose first owner keeps them when it is shared
+                spans = service.spans = TraceSpans.start(
                     getattr(service.verifier, "device", None)
                 )
+                if isinstance(service.broadcast, Broadcast):
+                    service.broadcast.spans = spans
+                if getattr(service.verifier, "spans", None) is NO_SPANS:
+                    service.verifier.spans = spans
 
             if serve_rpc:
                 # The public RPC port is a mux (reference parity: tonic serves
@@ -830,9 +827,9 @@ class Service(At2Servicer):
                 await self._catchup_task
             except asyncio.CancelledError:
                 pass
-        if self._profiler is not None:
-            _stop_profile(self._profiler, self.config.observability.profile_dir)
-            self._profiler = None
+        if self.spans.on:
+            self.spans.stop(self.config.observability.profile_dir)
+            self.spans = NO_SPANS
         if self._stats_task is not None:
             self._stats_task.cancel()
             try:
@@ -1809,237 +1806,256 @@ class Service(At2Servicer):
             await self._drain_to_fixpoint_locked()
 
     async def _drain_to_fixpoint_locked(self) -> None:
-        while True:
-            # Take ownership of everything currently pending; the loop
-            # body awaits, and _push_pending (delivery loop, catchup) runs
-            # WITHOUT the drain lock — concurrent pushes land in the fresh
-            # self._heap and are picked up by the next pass instead of
-            # mutating the list this pass is iterating (a heappush mid-
-            # iteration could sift an entry behind the iterator, and the
-            # end-of-pass rebuild would silently discard it forever).
-            # The parked groups leave with it, so that readers see during
-            # the pass what they would see of the reference's one list.
-            if not self._heap and not self._parked_n:
-                break
-            batch, parked = self._heap, self._parked
-            self._heap, self._parked, self._parked_n = [], {}, 0
-            now = self.clock.monotonic()
-            batch.extend(self._unpark(parked, batch, now))
-            before = len(batch)
-            batch.sort()
-            catchup_keys = self._catchup_keys
+        # one at2.commit.drain span a synchronous stretch: the accounts
+        # lock is never held across a suspension, so only the shielded
+        # commit tail suspends a pass
+        sp = self.spans
+        h = sp.begin("at2.commit.drain", self._pending_count()) if sp.on else None
+        try:
+            while True:
+                # Take ownership of everything currently pending; the loop
+                # body awaits, and _push_pending (delivery loop, catchup) runs
+                # WITHOUT the drain lock — concurrent pushes land in the fresh
+                # self._heap and are picked up by the next pass instead of
+                # mutating the list this pass is iterating (a heappush mid-
+                # iteration could sift an entry behind the iterator, and the
+                # end-of-pass rebuild would silently discard it forever).
+                # The parked groups leave with it, so that readers see during
+                # the pass what they would see of the reference's one list.
+                if not self._heap and not self._parked_n:
+                    break
+                batch, parked = self._heap, self._parked
+                self._heap, self._parked, self._parked_n = [], {}, 0
+                now = self.clock.monotonic()
+                batch.extend(self._unpark(parked, batch, now))
+                before = len(batch)
+                batch.sort()
+                catchup_keys = self._catchup_keys
 
-            def _apply_pass(accounts) -> tuple:
-                """One synchronous pass over the sorted batch under the
-                accounts lock (Accounts.run_exclusive): per-item stale /
-                TTL / transfer semantics identical to the reference's
-                loop (rpc.rs:176-208), but ONE lock round-trip for the
-                whole pass and the ring mutations collected for one bulk
-                apply — the commit path's per-tx actor overhead was the
-                top in-window cost at batched-plane rates."""
-                retry: List[tuple] = []
-                ring_ops: List[tuple] = []
-                commits: List[tuple] = []
-                drops: List[Payload] = []  # gave up: unpark from the store
-                for key, added, tiebreak, payload in batch:
-                    # An already-consumed sequence can never commit (the
-                    # gate admits exactly last+1 and last only grows);
-                    # keep it retrying until the reference's TTL so the
-                    # ring records stay bit-identical with the
-                    # reference, then drop it instead of parking it.
-                    stale = payload.sequence <= accounts.last_sequence_nowait(
-                        payload.sender
-                    )
-                    if now - added > TRANSACTION_TTL:
-                        logger.warning(
-                            "transaction timed out: (%s, %d)",
-                            payload.sender.hex()[:16],
-                            payload.sequence,
+                def _apply_pass(accounts) -> tuple:
+                    """One synchronous pass over the sorted batch under the
+                    accounts lock (Accounts.run_exclusive): per-item stale /
+                    TTL / transfer semantics identical to the reference's
+                    loop (rpc.rs:176-208), but ONE lock round-trip for the
+                    whole pass and the ring mutations collected for one bulk
+                    apply — the commit path's per-tx actor overhead was the
+                    top in-window cost at batched-plane rates."""
+                    retry: List[tuple] = []
+                    ring_ops: List[tuple] = []
+                    commits: List[tuple] = []
+                    drops: List[Payload] = []  # gave up: unpark from the store
+                    for key, added, tiebreak, payload in batch:
+                        # An already-consumed sequence can never commit (the
+                        # gate admits exactly last+1 and last only grows);
+                        # keep it retrying until the reference's TTL so the
+                        # ring records stay bit-identical with the
+                        # reference, then drop it instead of parking it.
+                        stale = payload.sequence <= accounts.last_sequence_nowait(
+                            payload.sender
                         )
-                        if stale:
-                            # catchup/delivery duplicate of a committed
-                            # slot, or a transfer whose own failed debit
-                            # consumed the sequence: FAILURE-mark the
-                            # latter, never flip a committed twin's
-                            # SUCCESS, and drop
-                            ring_ops.append(
-                                (
-                                    "unless_success",
-                                    payload.sender,
-                                    payload.sequence,
-                                )
+                        if now - added > TRANSACTION_TTL:
+                            logger.warning(
+                                "transaction timed out: (%s, %d)",
+                                payload.sender.hex()[:16],
+                                payload.sequence,
                             )
+                            if stale:
+                                # catchup/delivery duplicate of a committed
+                                # slot, or a transfer whose own failed debit
+                                # consumed the sequence: FAILURE-mark the
+                                # latter, never flip a committed twin's
+                                # SUCCESS, and drop
+                                ring_ops.append(
+                                    (
+                                        "unless_success",
+                                        payload.sender,
+                                        payload.sequence,
+                                    )
+                                )
+                                drops.append(payload)
+                                continue
+                            if key not in catchup_keys:
+                                # catchup-sourced payloads are quorum-
+                                # confirmed committed network-wide; a local
+                                # gap-block must not record FAILURE for a
+                                # transfer every peer reports SUCCESS
+                                ring_ops.append(
+                                    (
+                                        "update",
+                                        payload.sender,
+                                        payload.sequence,
+                                        TransactionState.FAILURE,
+                                    )
+                                )
+                            # NO continue — TTL-expired payloads still
+                            # process and may flip to Success (reference
+                            # quirk, rpc.rs:183-205)
+                        try:
+                            accounts._transfer(
+                                payload.sender,
+                                payload.sequence,
+                                payload.transaction.recipient,
+                                payload.transaction.amount,
+                            )
+                        except AccountModificationError as exc:
+                            logger.debug(
+                                "retrying payload (%s, %d): %s",
+                                payload.sender.hex()[:16],
+                                payload.sequence,
+                                exc,
+                            )
+                            retry.append((key, added, tiebreak, payload))
+                            continue
+                        except Exception as exc:
+                            logger.warning("dropping bad payload: %s", exc)
                             drops.append(payload)
                             continue
-                        if key not in catchup_keys:
-                            # catchup-sourced payloads are quorum-
-                            # confirmed committed network-wide; a local
-                            # gap-block must not record FAILURE for a
-                            # transfer every peer reports SUCCESS
-                            ring_ops.append(
-                                (
-                                    "update",
-                                    payload.sender,
-                                    payload.sequence,
-                                    TransactionState.FAILURE,
+                        if self.ledger_failpoint is not None:
+                            # sim-only corruption seam (sim/campaign.py
+                            # "misapply" event): misapply a balance delta to
+                            # the recipient AFTER a successful transfer,
+                            # BEFORE the post-commit balance capture — the
+                            # WAL, the ring, and the digest all see the
+                            # corrupted state consistently, so only peers'
+                            # auditors can catch it (which is the point).
+                            delta = self.ledger_failpoint(payload)
+                            if delta:
+                                accounts._tamper(
+                                    payload.transaction.recipient, delta
                                 )
+                        ring_ops.append(
+                            (
+                                "update",
+                                payload.sender,
+                                payload.sequence,
+                                TransactionState.SUCCESS,
                             )
-                        # NO continue — TTL-expired payloads still
-                        # process and may flip to Success (reference
-                        # quirk, rpc.rs:183-205)
-                    try:
-                        accounts._transfer(
-                            payload.sender,
-                            payload.sequence,
-                            payload.transaction.recipient,
-                            payload.transaction.amount,
                         )
-                    except AccountModificationError as exc:
-                        logger.debug(
-                            "retrying payload (%s, %d): %s",
-                            payload.sender.hex()[:16],
-                            payload.sequence,
-                            exc,
+                        # POST-commit balances captured here, inside the
+                        # exclusive section, so the WAL record the store
+                        # appends is exactly the ledger state this transfer
+                        # left behind (a later read could see a newer value)
+                        s_bal = accounts._ledger[payload.sender].balance
+                        recipient = payload.transaction.recipient
+                        r_bal = (
+                            accounts._ledger[recipient].balance
+                            if recipient != payload.sender
+                            else None
                         )
-                        retry.append((key, added, tiebreak, payload))
-                        continue
-                    except Exception as exc:
-                        logger.warning("dropping bad payload: %s", exc)
-                        drops.append(payload)
-                        continue
-                    if self.ledger_failpoint is not None:
-                        # sim-only corruption seam (sim/campaign.py
-                        # "misapply" event): misapply a balance delta to
-                        # the recipient AFTER a successful transfer,
-                        # BEFORE the post-commit balance capture — the
-                        # WAL, the ring, and the digest all see the
-                        # corrupted state consistently, so only peers'
-                        # auditors can catch it (which is the point).
-                        delta = self.ledger_failpoint(payload)
-                        if delta:
-                            accounts._tamper(
-                                payload.transaction.recipient, delta
-                            )
-                    ring_ops.append(
-                        (
-                            "update",
-                            payload.sender,
-                            payload.sequence,
-                            TransactionState.SUCCESS,
-                        )
-                    )
-                    # POST-commit balances captured here, inside the
-                    # exclusive section, so the WAL record the store
-                    # appends is exactly the ledger state this transfer
-                    # left behind (a later read could see a newer value)
-                    s_bal = accounts._ledger[payload.sender].balance
-                    recipient = payload.transaction.recipient
-                    r_bal = (
-                        accounts._ledger[recipient].balance
-                        if recipient != payload.sender
-                        else None
-                    )
-                    commits.append((key, payload, s_bal, r_bal))
-                return retry, ring_ops, commits, drops
+                        commits.append((key, payload, s_bal, r_bal))
+                    return retry, ring_ops, commits, drops
 
-            retry, ring_ops, commits, drops = await self.accounts.run_exclusive(
-                _apply_pass
-            )
-            if drops and self.store is not None:
-                for p in drops:
-                    try:
-                        self.store.note_unparked(p)
-                    except OSError:
-                        logger.exception("store unpark append failed")
-            if commits or ring_ops:
-                # the accounts mutation already happened inside
-                # run_exclusive: a cancellation landing between it and the
-                # history/ring bookkeeping would leave committed transfers
-                # invisible to catchup peers and stuck Pending in the
-                # recent ring. Shield the tail so close()'s task
-                # cancellation can interrupt the DRAIN but never split a
-                # commit from its record.
-                await asyncio.shield(self._commit_tail(commits, ring_ops))
-            # park the leftovers beside anything that arrived mid-pass; no
-            # awaits between here and the key update, so the set and the
-            # pending entries cannot diverge
-            arrivals = len(self._heap)
-            gone = {entry[0] for entry in batch}
-            gone.difference_update(entry[0] for entry in retry)
-            self._park(parked, retry)
-            self._heap_keys -= gone
-            self._catchup_keys &= self._heap_keys  # prune committed/dropped
-            progressed = len(retry) < before
-            if not self._pending_count() or not (progressed or arrivals):
-                break
-        # Anything still pending after a fixpoint pass is gap-blocked: its
-        # predecessor is not in flight anywhere local, so if it doesn't
-        # resolve within cfg.after (the runner's initial delay), it was
-        # committed network-wide while this node was away — pull it from
-        # peers. The kick is single-flight and the runner paces itself,
-        # so kicking on every drain with leftovers is cheap; kicking ONLY
-        # when entries are already old would miss gaps entirely (drains
-        # run on delivery, and a quiet net delivers nothing after the
-        # gapped payload — the age condition would never be re-checked).
-        cfg = self.config.catchup
-        if (
-            cfg.enabled
-            and self._pending_count()
-            and not self._closing
-            and self.mesh is not None
-            and self.mesh.peers
-        ):
-            self._kick_catchup()
+                retry, ring_ops, commits, drops = await self.accounts.run_exclusive(
+                    _apply_pass
+                )
+                if drops and self.store is not None:
+                    for p in drops:
+                        try:
+                            self.store.note_unparked(p)
+                        except OSError:
+                            logger.exception("store unpark append failed")
+                if commits or ring_ops:
+                    # the accounts mutation already happened inside
+                    # run_exclusive: a cancellation landing between it and the
+                    # history/ring bookkeeping would leave committed transfers
+                    # invisible to catchup peers and stuck Pending in the
+                    # recent ring. Shield the tail so close()'s task
+                    # cancellation can interrupt the DRAIN but never split a
+                    # commit from its record.
+                    if h is not None:
+                        sp.end(h)
+                        h = None
+                    await asyncio.shield(self._commit_tail(commits, ring_ops))
+                    h = sp.begin("at2.commit.drain", self._pending_count()) if sp.on else None
+                # park the leftovers beside anything that arrived mid-pass; no
+                # awaits between here and the key update, so the set and the
+                # pending entries cannot diverge
+                arrivals = len(self._heap)
+                gone = {entry[0] for entry in batch}
+                gone.difference_update(entry[0] for entry in retry)
+                self._park(parked, retry)
+                self._heap_keys -= gone
+                self._catchup_keys &= self._heap_keys  # prune committed/dropped
+                progressed = len(retry) < before
+                if not self._pending_count() or not (progressed or arrivals):
+                    break
+            # Anything still pending after a fixpoint pass is gap-blocked: its
+            # predecessor is not in flight anywhere local, so if it doesn't
+            # resolve within cfg.after (the runner's initial delay), it was
+            # committed network-wide while this node was away — pull it from
+            # peers. The kick is single-flight and the runner paces itself,
+            # so kicking on every drain with leftovers is cheap; kicking ONLY
+            # when entries are already old would miss gaps entirely (drains
+            # run on delivery, and a quiet net delivers nothing after the
+            # gapped payload — the age condition would never be re-checked).
+            cfg = self.config.catchup
+            if (
+                cfg.enabled
+                and self._pending_count()
+                and not self._closing
+                and self.mesh is not None
+                and self.mesh.peers
+            ):
+                self._kick_catchup()
+        finally:
+            if h is not None:
+                sp.end(h)
 
     async def _commit_tail(self, commits: list, ring_ops: list) -> None:
         """Post-apply commit bookkeeping, always run to completion (the
         caller shields it): history retention, counters, equivocation-
-        registry release, and the recent-ring flips."""
-        ph = self.phases
+        registry release, and the recent-ring flips. One synchronous
+        stretch: the ring's lock is never held across a suspension."""
+        ph, sp = self.phases, self.spans
         t0 = ph.t() if ph is not None else 0
-        for key, payload, s_bal, r_bal in commits:
-            logger.info(
-                "new payload: seq=%d sender=%s",
-                payload.sequence,
-                payload.sender.hex()[:16],
-            )
-            self.committed += 1
-            if self.store is not None:
-                # WAL append first (durability), then the in-memory fold;
-                # a store I/O failure must not split a commit from its
-                # ring/history bookkeeping
-                try:
-                    self.store.note_commit(
-                        payload, payload.sequence, s_bal, r_bal
-                    )
-                except OSError:
-                    logger.exception("store wal append failed")
-            self.tx_trace.stamp(
-                (payload.sender, payload.sequence), "committed"
-            )
-            if key in self._catchup_keys:
-                self._catchup_commits += 1
-            # retain for peers' ledger catchup (ledger/history.py)
-            self.history.record(payload)
-            if self.broadcast is not None:
-                # the ledger's per-client sequence gate now owns this
-                # (sender, sequence) binding — release the broadcast
-                # plane's equivocation-registry entry eagerly so the
-                # registry's working set tracks in-flight entries only
-                self.broadcast.release_entry(payload.sender, payload.sequence)
-        if ring_ops:
-            await self.recent.apply_many(ring_ops)
-        if commits:
-            # commit-count-triggered audit beacon: every node emits at
-            # the same committed-transfer strides, so the sim exercises
-            # the full beacon/compare path without any standing timer
-            # (and identically at plane shards 1 vs 4 — the commit order
-            # is identical, hence so are the emission points).
-            every = self.config.observability.audit_every
-            before = self.auditor.commits
-            self.auditor.note_commit(len(commits))
-            if every > 0 and before // every != self.auditor.commits // every:
-                self._emit_beacon()
+        h = sp.begin("at2.commit.tail", len(commits)) if sp.on else None
+        try:
+            for key, payload, s_bal, r_bal in commits:
+                logger.info(
+                    "new payload: seq=%d sender=%s",
+                    payload.sequence,
+                    payload.sender.hex()[:16],
+                )
+                self.committed += 1
+                if self.store is not None:
+                    # WAL append first (durability), then the in-memory fold;
+                    # a store I/O failure must not split a commit from its
+                    # ring/history bookkeeping
+                    try:
+                        self.store.note_commit(
+                            payload, payload.sequence, s_bal, r_bal
+                        )
+                    except OSError:
+                        logger.exception("store wal append failed")
+                self.tx_trace.stamp(
+                    (payload.sender, payload.sequence), "committed"
+                )
+                if key in self._catchup_keys:
+                    self._catchup_commits += 1
+                # retain for peers' ledger catchup (ledger/history.py)
+                self.history.record(payload)
+                if self.broadcast is not None:
+                    # the ledger's per-client sequence gate now owns this
+                    # (sender, sequence) binding — release the broadcast
+                    # plane's equivocation-registry entry eagerly so the
+                    # registry's working set tracks in-flight entries only
+                    self.broadcast.release_entry(payload.sender, payload.sequence)
+            if ring_ops:
+                await self.recent.apply_many(ring_ops)
+            if commits:
+                # commit-count-triggered audit beacon: every node emits at
+                # the same committed-transfer strides, so the sim exercises
+                # the full beacon/compare path without any standing timer
+                # (and identically at plane shards 1 vs 4 — the commit order
+                # is identical, hence so are the emission points).
+                every = self.config.observability.audit_every
+                before = self.auditor.commits
+                self.auditor.note_commit(len(commits))
+                if every > 0 and before // every != self.auditor.commits // every:
+                    self._emit_beacon()
+        finally:
+            if h is not None:
+                sp.end(h)
         if ph is not None:
             ph.add("commit_tail", t0)
 
@@ -2553,24 +2569,23 @@ class Service(At2Servicer):
     # -- gRPC handlers (rpc.rs:256-344) ----------------------------------
 
     @staticmethod
-    async def _validated_payload(request, context, where: str = "") -> Payload:
+    def _checked_payload(request, where: str = "") -> tuple:
+        """``(payload, "")`` for a well-formed request, ``(None, why)``
+        otherwise; the caller aborts, outside its span."""
         if len(request.sender) != 32 or len(request.recipient) != 32:
-            await context.abort(
-                grpc.StatusCode.INVALID_ARGUMENT,
-                f"keys must be 32 bytes{where}",
-            )
+            return None, f"keys must be 32 bytes{where}"
         if len(request.signature) != 64:
-            await context.abort(
-                grpc.StatusCode.INVALID_ARGUMENT,
-                f"signature must be 64 bytes{where}",
-            )
+            return None, f"signature must be 64 bytes{where}"
         try:
             thin = ThinTransaction(request.recipient, request.amount)
         except ValueError as exc:
-            await context.abort(
-                grpc.StatusCode.INVALID_ARGUMENT, f"{exc}{where}"
-            )
-        return Payload(request.sender, request.sequence, thin, request.signature)
+            return None, f"{exc}{where}"
+        return Payload(request.sender, request.sequence, thin, request.signature), ""
+
+    def _rpc_span(self, name: str, first, n: int):
+        """Open RPC span ``name`` of a call whose first transfer is
+        ``first`` (a request or a payload) and which carries ``n``."""
+        return self.spans.begin(name, first.sender, first.sequence, n)
 
     async def _ingest(self, payloads: List[Payload]) -> None:
         """Common ingress tail for SendAsset / SendAssetBatch: ring
@@ -2665,30 +2680,40 @@ class Service(At2Servicer):
         FIRST: a shed request costs no verifier work and must NOT charge
         the sender's fail bucket — refusing valid work under pressure is
         the node's state, not evidence against the sender. Shed
-        responses carry a typed ``retry_after_ms`` hint."""
-        await self._overload_gate(payloads, context)
-        ad = self.config.admission
-        if not ad.preverify or self.verifier is None:
+        responses carry a typed ``retry_after_ms`` hint.
+
+        The ``at2.rpc.gate`` span covers the gate and the bucket, up to
+        the verifier call; a refusal aborts after it closes."""
+        sp = self.spans
+        h = self._rpc_span("at2.rpc.gate", payloads[0], len(payloads)) if sp.on else None
+        try:
+            refusal = self._overload_gate(payloads)
+            items = None
+            ad = self.config.admission
+            if refusal is None and ad.preverify and self.verifier is not None:
+                peer_fn = getattr(context, "peer", None)
+                source = peer_fn() if callable(peer_fn) else "local"
+                bucket = self._admission_refill(source, self.clock.monotonic())
+                if bucket[0] < 1.0:
+                    self.admission_stats["admission_throttled"] += 1
+                    # terminal trace stamp + flight-record BEFORE the abort
+                    # raises: a throttled tx's trace must retire into the
+                    # completed ring, not linger until cap eviction
+                    self._trace_stamp(payloads, REJECTED)
+                    self.recorder.record(
+                        "admit_throttle", (len(payloads), source)
+                    )
+                    refusal = "too many invalid signatures from this source; retry later"
+                else:
+                    items = [(p.sender, p.to_sign(), p.signature) for p in payloads]
+        finally:
+            if h is not None:
+                sp.end(h)
+        if refusal is not None:
+            await context.abort(grpc.StatusCode.RESOURCE_EXHAUSTED, refusal)
+        if items is None:
             return
-        peer_fn = getattr(context, "peer", None)
-        source = peer_fn() if callable(peer_fn) else "local"
-        bucket = self._admission_refill(source, self.clock.monotonic())
-        if bucket[0] < 1.0:
-            self.admission_stats["admission_throttled"] += 1
-            # terminal trace stamp + flight-record BEFORE the abort
-            # raises: a throttled tx's trace must retire into the
-            # completed ring, not linger until cap eviction
-            self._trace_stamp(payloads, REJECTED)
-            self.recorder.record(
-                "admit_throttle", (len(payloads), source)
-            )
-            await context.abort(
-                grpc.StatusCode.RESOURCE_EXHAUSTED,
-                "too many invalid signatures from this source; retry later",
-            )
-        results = await self.verifier.verify_many(
-            [(p.sender, p.to_sign(), p.signature) for p in payloads]
-        )
+        results = await self.verifier.verify_many(items)
         bad = [i for i, ok in enumerate(results) if not ok]
         if not bad:
             return
@@ -2706,16 +2731,17 @@ class Service(At2Servicer):
             + (f" (entries {bad})" if len(payloads) > 1 else ""),
         )
 
-    async def _overload_gate(self, payloads: List[Payload], context) -> None:
+    def _overload_gate(self, payloads: List[Payload]) -> Optional[str]:
         """The adaptive-admission actuator: one deterministic shed
-        decision per client request, taken before any verifier work.
+        decision per client request, taken before any verifier work;
+        the details to refuse it with, or None to admit it.
         Senders already in the gossiped directory get the configured
         grace (the crowd is, almost by definition, unknown senders).
         Protocol traffic never passes through here — only client
         ingress is sheddable."""
         ov = self.overload
         if not ov.cfg.enabled:
-            return
+            return None
         now = self.clock.monotonic()
         # lazy sample: the sim has no standing probe loop, so ingress is
         # where the pressure score stays fresh (rate-limited inside)
@@ -2725,7 +2751,7 @@ class Service(At2Servicer):
         )
         retry_ms = ov.admit(registered=registered, now=now)
         if retry_ms is None:
-            return
+            return None
         self.overload_stats["overload_shed_requests"] += 1
         self.overload_stats["overload_shed_entries"] += len(payloads)
         self._trace_stamp(payloads, REJECTED)
@@ -2738,10 +2764,7 @@ class Service(At2Servicer):
                 retry_ms,
             ),
         )
-        await context.abort(
-            grpc.StatusCode.RESOURCE_EXHAUSTED,
-            format_shed_details("ingress shed under overload", retry_ms),
-        )
+        return format_shed_details("ingress shed under overload", retry_ms)
 
     def _trace_begin(self, payloads: List[Payload]) -> None:
         if self.tx_trace.enabled:
@@ -2755,12 +2778,38 @@ class Service(At2Servicer):
             for p in payloads:
                 self.tx_trace.stamp((p.sender, p.sequence), stage, now)
 
+    async def _admitted(self, payloads: List[Payload]) -> None:
+        """The post-admission stamp and ``_ingest``, each in its span. The
+        awaits in ``_ingest`` suspend only on a full inbox: the ring's
+        lock is never held across a suspension."""
+        sp = self.spans
+        h = self._rpc_span("at2.rpc.stamp", payloads[0], len(payloads)) if sp.on else None
+        try:
+            self._trace_stamp(payloads, "admitted")
+        finally:
+            if h is not None:
+                sp.end(h)
+        h = self._rpc_span("at2.rpc.ingest", payloads[0], len(payloads)) if sp.on else None
+        try:
+            await self._ingest(payloads)
+        finally:
+            if h is not None:
+                sp.end(h)
+
     async def SendAsset(self, request, context):
-        payload = await self._validated_payload(request, context)
-        self._trace_begin([payload])
+        sp = self.spans
+        h = self._rpc_span("at2.rpc.validate", request, 1) if sp.on else None
+        try:
+            payload, error = self._checked_payload(request)
+            if payload is not None:
+                self._trace_begin([payload])
+        finally:
+            if h is not None:
+                sp.end(h)
+        if error:
+            await context.abort(grpc.StatusCode.INVALID_ARGUMENT, error)
         await self._admit([payload], context)
-        self._trace_stamp([payload], "admitted")
-        await self._ingest([payload])
+        await self._admitted([payload])
         return pb.SendAssetReply()
 
     async def SendAssetBatch(self, request, context):
@@ -2780,15 +2829,28 @@ class Service(At2Servicer):
                 grpc.StatusCode.INVALID_ARGUMENT,
                 f"batch exceeds {MAX_BATCH_ENTRIES} transactions",
             )
-        payloads = []
-        for i, req in enumerate(request.transactions):
-            payloads.append(
-                await self._validated_payload(req, context, f" (entry {i})")
-            )
-        self._trace_begin(payloads)
+        sp = self.spans
+        h = (
+            self._rpc_span("at2.rpc.validate", request.transactions[0], len(request.transactions))
+            if sp.on
+            else None
+        )
+        try:
+            payloads, error = [], ""
+            for i, req in enumerate(request.transactions):
+                payload, error = self._checked_payload(req, f" (entry {i})")
+                if error:
+                    break
+                payloads.append(payload)
+            else:
+                self._trace_begin(payloads)
+        finally:
+            if h is not None:
+                sp.end(h)
+        if error:
+            await context.abort(grpc.StatusCode.INVALID_ARGUMENT, error)
         await self._admit(payloads, context)
-        self._trace_stamp(payloads, "admitted")
-        await self._ingest(payloads)
+        await self._admitted(payloads)
         return pb.SendAssetReply()
 
     async def GetBalance(self, request, context):

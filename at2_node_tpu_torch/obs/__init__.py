@@ -2,15 +2,20 @@
 protocol flight recorder, the SLO engine, wire exposition. See the
 registry.py / trace.py / recorder.py / slo.py module docstrings for the
 contracts. Nothing here imports torch: a plane shard worker loads this
-package without it (``profiler.build_info`` imports torch when called)."""
+package without it (``profiler.build_info`` imports torch when called,
+``profiler.TraceSpans.start`` when a node starts its trace)."""
 
 from .audit import AUDIT_RANGES, FleetAuditor, LedgerDigest
 from .profiler import (
+    NO_SPANS,
     PHASES,
     PLANE_LEAF_PHASES,
+    SPAN_ARGS,
+    BusySelector,
     EventLoopLagProbe,
     PhaseAccounting,
     StackSampler,
+    TraceSpans,
     build_info,
 )
 from .recorder import FlightRecorder
@@ -27,6 +32,7 @@ from .trace import BROKER_STAGES, REJECTED, STAGES, TxTrace
 __all__ = [
     "AUDIT_RANGES",
     "BROKER_STAGES",
+    "BusySelector",
     "Counter",
     "CounterGroup",
     "EventLoopLagProbe",
@@ -35,15 +41,18 @@ __all__ = [
     "LedgerDigest",
     "Gauge",
     "Histogram",
+    "NO_SPANS",
     "Objective",
     "PHASES",
     "PLANE_LEAF_PHASES",
     "PhaseAccounting",
     "REJECTED",
     "Registry",
+    "SPAN_ARGS",
     "STAGES",
     "SloEngine",
     "StackSampler",
+    "TraceSpans",
     "TxTrace",
     "build_info",
     "default_objectives",

@@ -35,15 +35,29 @@ yappi / opentelemetry here. Three coordinated parts:
   never deadlocks the scheduler, while the standing background loop is
   reserved for served (real-time) nodes.
 
+Beside them, two parts for the node's own timeline:
+
+* :class:`TraceSpans` — while ``[observability] profile_dir`` is set, a
+  ``torch.profiler`` trace of the node with the program's host work in it
+  as ranges of the :data:`SPAN_ARGS` vocabulary (PHASES' names where a
+  phase exists). torch is imported only when such a trace starts; a node
+  that does not trace holds the shared :data:`NO_SPANS`.
+
+* :class:`BusySelector` — the served node's event-loop selector, timed:
+  the loop's busy time is what it spends outside ``select()``.
+
 See TECHNICAL.md "Continuous profiling & plane time-accounting" for the
-phase vocabulary and the overhead budget.
+phase vocabulary and the overhead budget, and README.md "The node's own
+timeline" for the spans, their arguments and the switch.
 """
 
 from __future__ import annotations
 
 import contextvars
+import json
 import os
 import platform
+import selectors
 import subprocess
 import sys
 import threading
@@ -53,13 +67,17 @@ from typing import Iterable, Optional, Sequence
 from .registry import Histogram, Registry
 
 __all__ = [
+    "NO_SPANS",
     "PHASES",
     "PLANE_LEAF_PHASES",
     "PHASE_BOUNDS",
+    "SPAN_ARGS",
+    "BusySelector",
     "EventLoopLagProbe",
     "PhaseAccounting",
     "ShardPhaseView",
     "StackSampler",
+    "TraceSpans",
     "build_info",
     "merge_folded",
     "parse_folded",
@@ -251,6 +269,168 @@ class ShardPhaseView:
 
     def totals(self) -> dict[str, int]:
         return self._base.totals()
+
+
+# --------------------------------------------------------------------------
+# Program spans in the node's torch.profiler trace
+
+# The span vocabulary, each name with the arguments its span carries, in
+# the order a site passes them. A span is one synchronous stretch of host
+# work: it never stays open across an ``await`` that can suspend, since
+# coroutines interleave on the loop thread and such a span would mis-nest
+# with theirs. The broadcast and commit spans reuse PHASES' names; one
+# ``at2.broadcast.apply`` span covers a drain cycle's post-verify stretch,
+# whose leaves (echo_apply, quorum_bitmap, ready_deliver, entry_registry)
+# PhaseAccounting splits.
+SPAN_ARGS: dict[str, tuple[str, ...]] = {
+    "at2.rpc.validate": ("sender", "sequence", "n"),
+    "at2.rpc.gate": ("sender", "sequence", "n"),
+    "at2.rpc.stamp": ("sender", "sequence", "n"),
+    "at2.rpc.ingest": ("sender", "sequence", "n"),
+    "at2.broadcast.rx_decode": ("msgs",),
+    "at2.broadcast.apply": ("msgs",),
+    "at2.broadcast.slot_gc": ("slots",),
+    "at2.commit.drain": ("pending",),
+    "at2.commit.tail": ("commits",),
+    "at2.verifier.flush": ("flush", "lanes", "bucket"),
+    "at2.verifier.prep": ("flush",),
+    "at2.verifier.launch": ("flush",),
+    "at2.verifier.finish": ("flush",),
+}
+
+
+class _NoSpans:
+    """The span helper of a process that does not trace: ``on`` is False,
+    so a site tests one attribute and opens nothing."""
+
+    __slots__ = ()
+    on = False
+
+
+NO_SPANS = _NoSpans()
+
+
+class TraceSpans:
+    """A ``torch.profiler`` trace of this process, with the program's spans
+    in it (``[observability] profile_dir``).
+
+    The profiler records every thread (the verifier's stage threads too),
+    CPU activity, and CUDA activity when ``device`` is a CUDA device. A
+    span is a ``record_function`` range, category ``user_annotation``, on
+    the profiler's own clock. Site idiom::
+
+        sp = self.spans                       # NO_SPANS when not tracing
+        h = sp.begin("at2.commit.tail", len(commits)) if sp.on else None
+        try:
+            ...work, no suspending await...
+        finally:
+            if h is not None:
+                sp.end(h)
+
+    The profiler takes no arguments for a range, so :meth:`begin` keeps
+    them by thread and name, in order, and :meth:`stop` writes them into
+    the exported events' ``args`` (spans of one name on one thread never
+    overlap, so their order in the trace is the order they were opened).
+    A span that opened and never closed would leave its arguments to the
+    next span of its name on its thread: every site closes in a
+    ``finally``.
+    """
+
+    on = True
+
+    def __init__(self, prof, record_function) -> None:
+        self._prof = prof
+        self._rf = record_function
+        self._args: dict[tuple[int, str], list] = {}
+
+    @classmethod
+    def start(cls, device=None) -> "TraceSpans":
+        import torch
+        from torch._C._profiler import _ExperimentalConfig
+
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if getattr(device, "type", None) == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        prof = torch.profiler.profile(
+            activities=activities,
+            experimental_config=_ExperimentalConfig(profile_all_threads=True),
+        )
+        prof.start()
+        return cls(prof, torch.profiler.record_function)
+
+    def begin(self, name: str, *args):
+        """Open span ``name`` on this thread; ``args`` as SPAN_ARGS[name]."""
+        rf = self._rf(name)
+        rf.__enter__()
+        key = (threading.get_native_id(), name)
+        kept = self._args.get(key)
+        if kept is None:
+            kept = self._args[key] = []
+        kept.append(args)
+        return rf
+
+    @staticmethod
+    def end(rf) -> None:
+        rf.__exit__(None, None, None)
+
+    def stop(self, profile_dir: str) -> str:
+        """Stop tracing and export the trace as one Chrome trace file in
+        ``profile_dir``, spans annotated; returns its path."""
+        self.on = False
+        self._prof.stop()
+        os.makedirs(profile_dir, exist_ok=True)
+        path = os.path.join(profile_dir, f"at2-node-{os.getpid()}.trace.json")
+        self._prof.export_chrome_trace(path)
+        self.annotate(path)
+        return path
+
+    def annotate(self, path: str) -> None:
+        """Write each span's arguments into its event in the trace at
+        ``path``: a sender as the hex of its first 8 bytes."""
+        with open(path) as f:
+            doc = json.load(f)
+        events: dict[tuple[int, str], list] = {}
+        for e in doc.get("traceEvents", ()):
+            if e.get("cat") == "user_annotation" and e.get("ph") == "X":
+                key = (e.get("tid"), e.get("name"))
+                if key in self._args:
+                    events.setdefault(key, []).append(e)
+        for key, evs in events.items():
+            evs.sort(key=lambda e: e["ts"])
+            names = SPAN_ARGS.get(key[1], ())
+            for e, values in zip(evs, self._args[key]):
+                e.setdefault("args", {}).update(
+                    (k, v[:8].hex() if isinstance(v, bytes) else v)
+                    for k, v in zip(names, values)
+                )
+        self._args.clear()
+        with open(path, "w") as f:
+            json.dump(doc, f)
+
+
+# bound once: BusySelector.select runs every loop iteration
+_perf_ns = time.perf_counter_ns
+_default_select = selectors.DefaultSelector.select
+
+
+class BusySelector(selectors.DefaultSelector):
+    """The platform's default selector, timed: ``busy_ns`` grows by the
+    time its event loop spends outside ``select()``, i.e. running
+    callbacks and tasks. Two ``perf_counter_ns`` calls per loop
+    iteration. Install with ``asyncio.run(main, loop_factory=lambda:
+    asyncio.SelectorEventLoop(selector))``."""
+
+    def __init__(self) -> None:
+        super().__init__()
+        self.busy_ns = 0
+        self._resumed = _perf_ns()
+
+    def select(self, timeout=None):
+        t = _perf_ns()
+        self.busy_ns += t - self._resumed
+        ready = _default_select(self, timeout)
+        self._resumed = _perf_ns()
+        return ready
 
 
 # --------------------------------------------------------------------------

@@ -1813,7 +1813,8 @@ async def check_sequences(net: ServerNet, clients: list, want: int) -> None:
 async def check_replay(net: ServerNet, clients: list, per_client: list) -> None:
     """Every node's ledger (``GetLastSequence`` and ``GetBalance`` of every
     client) equals the python-int replay of ``per_client[c]``, client c's
-    transfers."""
+    transfers. A client with none (a crowd sender refused throughout) and
+    no credit is where every account starts: sequence 0, 100,000."""
     from at2_node_tpu_torch.client import Client
 
     replay = replay_ledger([(clients[c].public, seq, r, a)
@@ -1823,9 +1824,10 @@ async def check_replay(net: ServerNet, clients: list, per_client: list) -> None:
             got = await asyncio.gather(*(asyncio.gather(conn.get_last_sequence(kp.public),
                                                         conn.get_balance(kp.public)) for kp in clients))
         for kp, (seq, bal) in zip(clients, got):
-            check([seq, bal] == replay[kp.public.hex()],
+            want = replay.get(kp.public.hex(), [0, 100_000])
+            check([seq, bal] == want,
                   f"node {i}: {kp.public.hex()[:12]} has sequence {seq}, balance {bal}; "
-                  f"the replay says {replay[kp.public.hex()]}")
+                  f"the replay says {want}")
 
 
 async def grpcweb_transfer(net: ServerNet, rng, kind: str, deadline_s: float) -> dict:

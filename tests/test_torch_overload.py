@@ -500,7 +500,37 @@ async def test_chip_smoke_phase13_runs_with_the_cpu_kind(capsys):
 class TestPhase13Readings:
     """The helpers phase 13 reads the card's run through, on made-up
     inputs: the trace's K1 count and busy union, the signals' release and
-    lead, the /healthz reason."""
+    lead, the /healthz reason, the ledgers against the replay."""
+
+    async def test_check_replay_takes_a_client_that_committed_nothing(self):
+        """A crowd sender the controller refused throughout has no transfer
+        in the replay: the check holds its ledger to a fresh account's, and
+        still fails a ledger the replay does not give."""
+        from at2_node_tpu_torch.client import Client
+        from at2_node_tpu_torch.crypto.keys import ExchangeKeyPair, SignKeyPair
+        from at2_node_tpu_torch.node.config import Config, VerifierConfig
+        from at2_node_tpu_torch.node.service import Service
+
+        ports = chip_smoke.free_ports(2)
+        service = await Service.start(Config(
+            node_address=f"127.0.0.1:{ports[0]}", rpc_address=f"127.0.0.1:{ports[1]}",
+            sign_key=SignKeyPair.random(), network_key=ExchangeKeyPair.random(),
+            verifier=VerifierConfig(kind="cpu")))
+        try:
+            sender, idle, recipient = SignKeyPair.random(), SignKeyPair.random(), SignKeyPair.random()
+            async with Client(f"http://127.0.0.1:{ports[1]}") as client:
+                await client.send_asset(sender, 1, recipient.public, 3)
+                deadline = asyncio.get_running_loop().time() + 30.0
+                while await client.get_last_sequence(sender.public) != 1:
+                    assert asyncio.get_running_loop().time() < deadline
+                    await asyncio.sleep(0.05)
+            net = types.SimpleNamespace(rpc_ports=[ports[1]])
+            await chip_smoke.check_replay(net, [sender, idle], [[(1, recipient.public, 3)], []])
+            with pytest.raises(RuntimeError, match="the replay says"):
+                await chip_smoke.check_replay(net, [sender, idle],
+                                              [[(1, recipient.public, 3)], [(1, recipient.public, 3)]])
+        finally:
+            await service.close()
 
     def test_trace_kernels_counts_k1_and_the_device_union(self, tmp_path):
         k1 = "ed25519_verify_kernel(unsigned char const*, int, unsigned int const*, unsigned char*)"

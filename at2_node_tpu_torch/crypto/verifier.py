@@ -24,15 +24,21 @@ through the same three stages, and falls back to one exact per-signature
 pass over the flush when the equation fails or a lane must be rerouted.
 ``mode="rlc"`` sends every flush there; ``auto`` does so only for flushes
 of ``rlc_min_batch`` or more, and never without it, as on the reference's
-device path.
+device path. On the card, a per-signature flush of a verifier whose stages
+are its own skips the three threads: the native seam (``native/seam.py``)
+takes it from host prep to verdicts on one native thread that never takes
+the GIL, and wakes the loop through an eventfd.
 """
 
 from __future__ import annotations
 
 import asyncio
 import contextlib
+import ctypes
+import functools
 import os
 import threading
+import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from typing import Callable, List, Optional, Protocol, Sequence, Tuple
@@ -40,6 +46,7 @@ from typing import Callable, List, Optional, Protocol, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..native import seam as seam_mod
 from ..obs.profiler import NO_SPANS
 from ..obs.registry import Histogram
 from ..ops import aggregate as agg
@@ -577,6 +584,15 @@ class CudaBatchVerifier:
     ``device`` None means cuda:0 and raises without a GPU; ``device="cpu"``
     runs the plain PyTorch version (tests).
 
+    The native seam takes a flush in the stages' place when the device is
+    CUDA, the router sends it to the per-signature kernel, no stage of this
+    class is overridden (``_prep``, ``_launch``, ``_finish``,
+    ``_run_batch``); warm-up opens it, and raises where it does not build,
+    as K1 does. One call hands the flush to its worker and the flusher
+    goes on; an eventfd
+    callback resolves it (``_native_complete``), its stage times from the
+    worker's stamps. ``native_batches`` counts those flushes.
+
     The seam's round trip, split into three windowed sums (``stats()``),
     each with its count: ``seam_queue_s`` / ``seam_taken``, a signature's
     wait from enqueue to being taken by a flush; ``seam_pipeline_s`` /
@@ -642,9 +658,13 @@ class CudaBatchVerifier:
         self._finish_pool = ThreadPoolExecutor(max_workers=1)
         self._inflight = asyncio.Semaphore(self.PIPELINE_DEPTH)
         self._completions: set = set()
+        # opened at warm-up where flushes may take it (see the class's doc)
+        self._native: Optional[seam_mod.Seam] = None
+        self._stages_own = not self._overridden()
         self._closed = False
         self._flusher = asyncio.get_running_loop().create_task(self._flush_loop())
         self.batches_dispatched = 0
+        self.native_batches = 0
         self.signatures_verified = 0
         self.total_padding = 0
         self.total_dispatch_s = 0.0
@@ -680,6 +700,7 @@ class CudaBatchVerifier:
         lanes = n_s + self.total_padding
         return {
             "batches": n_b,
+            "native_batches": self.native_batches,
             "signatures": n_s,
             "queue_depth": len(self._queue),
             "queue_peak": self.queue_peak,
@@ -959,17 +980,40 @@ class CudaBatchVerifier:
         failed RLC flush)."""
         return self._finish(self._launch(self._prep(pks, msgs, sigs, bucket)), len(pks))
 
+    def _overridden(self) -> set:
+        """The stages and ``_run_batch`` a subclass overrides."""
+        cls = type(self)
+        return {
+            name for name in ("_prep", "_launch", "_finish", "_run_batch")
+            if getattr(cls, name) is not getattr(CudaBatchVerifier, name)
+        }
+
     def _staged_overrides_consistent(self) -> bool:
         """True when the staged pipeline is this instance's verify logic:
         nothing is overridden, or the stages are. A subclass that overrides
         only ``_run_batch`` must not be bypassed by the stages."""
-        cls = type(self)
-        run_overridden = cls._run_batch is not CudaBatchVerifier._run_batch
-        stages_overridden = (
-            cls._prep is not CudaBatchVerifier._prep
-            or cls._launch is not CudaBatchVerifier._launch
+        overridden = self._overridden()
+        return bool(overridden & {"_prep", "_launch"}) or "_run_batch" not in overridden
+
+    def _open_native(self) -> Optional[seam_mod.Seam]:
+        """The native seam for this verifier's per-signature flushes, or
+        None where they keep the Python stages: a device other than CUDA,
+        or a stage overridden (the subclass's stages are then its verify
+        logic). Raises when the seam does not build, as K1 does. Off the
+        loop: it allocates every slot and starts the worker."""
+        if self.device.type != "cuda" or not self._stages_own:
+            return None
+        k1 = cuda_verify.build()
+        return seam_mod.Seam(
+            seam_mod.load_cuda(),
+            device_index=self.device.index,
+            depth=self.PIPELINE_DEPTH,
+            max_rows=self.buckets[-1],
+            copy_stream=self._copy_stream.cuda_stream,
+            compute_stream=self._compute_stream.cuda_stream,
+            k1=ctypes.cast(k1.ed25519_verify_launch, ctypes.c_void_p).value,
+            consts=cuda_verify._device_consts(self.device).data_ptr(),
         )
-        return stages_overridden or not run_overridden
 
     # -- RLC stages: the same three threads, but the device runs one
     # classified RLC check (ops/aggregate.py) instead of the per-signature
@@ -997,7 +1041,9 @@ class CudaBatchVerifier:
         """Build the kernels and run EVERY bucket before serving traffic, so
         the first real signature never waits for nvcc or a first launch.
         Each bucket carries one good and one tampered signature and must
-        return exactly [True, False]; where the router can route to RLC, the
+        return exactly [True, False], through the native seam where it opens
+        and through the Python stages where they may serve a flush; where
+        the router can route to RLC, the
         RLC stages must give eq_ok with code 1 for the good signature alone
         and no eq_ok with the tampered one beside it. Then one request goes
         through the full accumulate/flush path."""
@@ -1018,14 +1064,26 @@ class CudaBatchVerifier:
             await loop.run_in_executor(self._device_pool, cuda_verify.build)
             if warm_rlc:
                 await loop.run_in_executor(self._device_pool, cuda_rlc.build)
+        if self._native is None:
+            # a warm-up that fails leaves it to close()
+            self._native = await loop.run_in_executor(self._device_pool, self._open_native)
+            if self._native is not None:
+                self._native.attach(loop)
         for bucket in self.buckets:
-            out = await loop.run_in_executor(
-                self._device_pool, self._run_batch, pks, msgs, sigs, bucket
-            )
-            if out.tolist() != [True, False]:
-                raise RuntimeError(
-                    f"verifier warm-up failed for bucket {bucket}: {out.tolist()}"
-                )
+            # the native seam where it will take flushes; the Python stages
+            # where they will (everywhere else, and an RLC flush's exact pass)
+            runs = []
+            if self._native is not None:
+                runs.append(await self._native_run(pks, msgs, sigs, bucket))
+            if self._native is None or warm_rlc:
+                runs.append(await loop.run_in_executor(
+                    self._device_pool, self._run_batch, pks, msgs, sigs, bucket
+                ))
+            for out in runs:
+                if out.tolist() != [True, False]:
+                    raise RuntimeError(
+                        f"verifier warm-up failed for bucket {bucket}: {out.tolist()}"
+                    )
             if warm_rlc:
                 good = await loop.run_in_executor(
                     self._device_pool, self._run_batch_rlc, pks[:1], msgs[:1], sigs[:1], bucket
@@ -1039,6 +1097,27 @@ class CudaBatchVerifier:
                     )
         if not await self.verify(kp.public, msg, sig):
             raise RuntimeError("verifier warm-up batch failed to verify")
+
+    async def _native_run(self, pks, msgs, sigs, bucket) -> np.ndarray:
+        """One batch through the native seam, outside the flush path
+        (warm-up); it holds an in-flight slot like a flush."""
+        await self._inflight.acquire()
+        done = asyncio.get_running_loop().create_future()
+
+        def complete(c: seam_mod.Completion) -> None:
+            self._inflight.release()
+            done.set_result(c)
+
+        try:
+            self._native.submit(pks, msgs, sigs, bucket, complete)
+        except BaseException:
+            self._inflight.release()
+            raise
+        c = await done
+        cuda_verify.launches += self._native.take_launches()
+        if c.error is not None:
+            raise c.error
+        return c.verdicts
 
     @staticmethod
     def _fail_batch(batch: List[_Pending], exc: BaseException) -> None:
@@ -1091,6 +1170,19 @@ class CudaBatchVerifier:
         # the clock starts after the depth gate: dispatch latency is one
         # batch's prep -> results time, not its queue wait
         t0 = self._clock.monotonic()
+        native = self._native
+        if native is not None and not rlc:
+            try:
+                native.submit(
+                    pks, msgs, sigs, bucket,
+                    functools.partial(self._native_complete, batch, bucket, t_take, fid),
+                )
+            except BaseException as exc:
+                self._inflight.release()
+                self._fail_batch(batch, exc)
+                if isinstance(exc, asyncio.CancelledError):
+                    raise
+            return
         try:
             if staged:
                 prepared = await loop.run_in_executor(
@@ -1173,6 +1265,10 @@ class CudaBatchVerifier:
         self.h_finish.observe(t_done - t_fin)
         self.total_dispatch_s += t_done - t0
         self.h_dispatch.observe(t_done - t0)
+        self._settle(batch, bucket, results, t_take, t_done)
+
+    def _settle(self, batch, bucket, results, t_take, t_done) -> None:
+        """Count a resolved batch and hand every signature its verdict."""
         self.batches_dispatched += 1
         self.signatures_verified += len(batch)
         self.total_padding += bucket - len(batch)
@@ -1180,6 +1276,40 @@ class CudaBatchVerifier:
         self.seam_resolved += len(batch)
         for p, ok in zip(batch, results):
             p.sink.set(p.idx, bool(ok), t_done)
+
+    def _native_complete(self, batch, bucket, t_take, fid, c: seam_mod.Completion) -> None:
+        """A flush the native seam finished, on the loop (its eventfd
+        callback): the stage times from the worker's stamps (prep: handed
+        over to uploaded; launch: to K1 and the copy back queued; finish:
+        to resolved here), then as ``_complete``. K1's launches are counted
+        as the worker made them, for a job that then failed too; a batch
+        whose settling raises fails its callers."""
+        self._inflight.release()
+        cuda_verify.launches += self._native.take_launches()
+        if c.error is not None:
+            self._fail_batch(batch, c.error)
+            return
+        sp = self.spans
+        h = sp.begin("at2.verifier.complete", fid, len(batch)) if sp.on else None
+        try:
+            now = time.monotonic()
+            prep, launch = c.t_uploaded - c.t_submit, c.t_launched - c.t_uploaded
+            finish, dispatch = now - c.t_launched, now - c.t_submit
+            self.total_prep_s += prep
+            self.h_prep.observe(prep)
+            self.total_launch_s += launch
+            self.h_launch.observe(launch)
+            self.total_finish_s += finish
+            self.h_finish.observe(finish)
+            self.total_dispatch_s += dispatch
+            self.h_dispatch.observe(dispatch)
+            self.native_batches += 1
+            self._settle(batch, bucket, c.verdicts, t_take, self._clock.monotonic())
+        except Exception as exc:
+            self._fail_batch(batch, exc)
+        finally:
+            if h is not None:
+                sp.end(h)
 
     async def close(self) -> None:
         self._closed = True
@@ -1203,6 +1333,9 @@ class CudaBatchVerifier:
             await asyncio.gather(
                 *list(self._completions), return_exceptions=True
             )
+        # the native seam's jobs: queued ones fail, running ones resolve
+        if self._native is not None:
+            await self._native.close()
         for p in self._queue:
             p.sink.fail(RuntimeError("verifier closed"))
         released = len(self._queue)

@@ -6,7 +6,8 @@ release image's build step, so that a node's first boot compiles nothing.
 Into ``at2_node_tpu_torch/build/``, side by side: the verify kernel
 (``csrc/ed25519_verify.cu``) and the two RLC kernels
 (``csrc/ed25519_rlc.cu``) with nvcc for ``sm_90a``, always rebuilt from
-their sources; the host prep (``native/at2_prep.cpp``) and the
+their sources; the verifier's native seam (``native/at2_seam.cpp`` on the
+CUDA runtime) with nvcc; the host prep (``native/at2_prep.cpp``) and the
 message-plane ingest (``native/at2_ingest.cpp``, libcrypto) with g++.
 Each library must load; ptxas's registers, stack frame and spill bytes of
 every kernel are printed. Without nvcc the module exits 2 and names it;
@@ -73,7 +74,7 @@ def build_libs(log=print) -> dict:
     """Every library, built side by side and loaded; the ptxas figures of
     each kernel by name (a kernel whose library is fresh is not rebuilt and
     has none). Raises RuntimeError when a library does not build or load."""
-    from .native import ingest, prep
+    from .native import ingest, prep, seam
     from .ops import cuda_rlc, cuda_verify
 
     def timed(fn):
@@ -81,18 +82,21 @@ def build_libs(log=print) -> dict:
         out = fn()
         return out, time.perf_counter() - t0
 
-    with ThreadPoolExecutor(max_workers=4) as pool:
+    with ThreadPoolExecutor(max_workers=5) as pool:
         kern = pool.submit(timed, cuda_verify.build)
         rlc = pool.submit(timed, cuda_rlc.build)
+        sm = pool.submit(timed, seam.load_cuda)
         # the libraries' loaders, not ingest_available: AT2_NO_NATIVE_INGEST
         # turns the ingest off at run time, not in the image
         nat = pool.submit(timed, lambda: prep._load() is not None)
         ing = pool.submit(timed, lambda: ingest._load() is not None)
         _, kern_s = kern.result()
         _, rlc_s = rlc.result()
+        _, seam_s = sm.result()
         native_ok, nat_s = nat.result()
         ingest_ok, ing_s = ing.result()
-    log(f"build: verify kernel {kern_s:.1f} s, RLC kernels {rlc_s:.1f} s (nvcc sm_90a), native prep "
+    log(f"build: verify kernel {kern_s:.1f} s, RLC kernels {rlc_s:.1f} s (nvcc sm_90a), native seam "
+        f"{seam_s:.1f} s (nvcc), native prep "
         f"{nat_s:.1f} s (g++), native ingest {ing_s:.1f} s (g++, libcrypto): "
         f"{'on' if ingest_ok else 'OFF, the broadcast plane parses and tallies in python'}")
     ptxas = {}

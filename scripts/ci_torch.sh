@@ -705,6 +705,14 @@ if [ "$tier" = "all" ]; then
     g++ -std=c++17 -O1 -g -fsanitize=address at2_ingest.cpp \
         sanitize_ingest_test.cpp -o ../build/sanitize_ingest_asan \
         -lpthread -l:libcrypto.so.3 && ../build/sanitize_ingest_asan
+    # the verifier's native seam on its host stand-in: the ring's hand-overs
+    # between the loop, the worker and the host functions
+    g++ -std=c++17 -O1 -g -fsanitize=thread at2_seam.cpp at2_seam_host.cpp \
+        ../csrc/ed25519_lane_host.cpp sanitize_seam_test.cpp \
+        -o ../build/sanitize_seam_tsan -lpthread && ../build/sanitize_seam_tsan
+    g++ -std=c++17 -O1 -g -fsanitize=address at2_seam.cpp at2_seam_host.cpp \
+        ../csrc/ed25519_lane_host.cpp sanitize_seam_test.cpp \
+        -o ../build/sanitize_seam_asan -lpthread && ../build/sanitize_seam_asan
   )
 
   echo "== kernel tier (slow) =="

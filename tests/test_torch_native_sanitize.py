@@ -1,11 +1,13 @@
 """The port's native sanitizer gates: the host C++ of the main path's step 1
-(``native/at2_prep.cpp``) and of the message plane (``native/at2_ingest.cpp``)
-built with g++ under ThreadSanitizer and AddressSanitizer beside their
-drivers (``native/sanitize_test.cpp``, ``native/sanitize_ingest_test.cpp``),
-and run. A driver fails on its own checks (a multithreaded fill or verify
-that differs from the single-threaded one, a wrong RFC 8032 row, a parse
-or reader fault); the test fails on that exit code or on any sanitizer
-report."""
+(``native/at2_prep.cpp``), of the message plane (``native/at2_ingest.cpp``)
+and of the verifier's native seam (``native/at2_seam.cpp`` on its host
+stand-in) built with g++ under ThreadSanitizer and AddressSanitizer beside
+their harnesses (``native/sanitize_test.cpp``, ``native/sanitize_ingest_test.cpp``,
+``native/sanitize_seam_test.cpp``), and run. A harness fails on its own
+checks (a multithreaded fill or verify that differs from the
+single-threaded one, a wrong RFC 8032 row, a parse or reader fault, a
+completion out of order or a job left unended); the test fails on that
+exit code or on any sanitizer report."""
 
 import os
 import subprocess
@@ -20,6 +22,8 @@ DRIVERS = {
     "prep": (("at2_prep.cpp", "sanitize_test.cpp"), ("-lpthread",), "sanitize_test: OK"),
     "ingest": (("at2_ingest.cpp", "sanitize_ingest_test.cpp"), ("-lpthread", "-l:libcrypto.so.3"),
                "sanitize_ingest_test: OK"),
+    "seam": (("at2_seam.cpp", "at2_seam_host.cpp", "../csrc/ed25519_lane_host.cpp", "sanitize_seam_test.cpp"),
+             ("-lpthread",), "sanitize_seam_test: OK"),
 }
 REPORTS = ("WARNING: ThreadSanitizer", "ERROR: AddressSanitizer", "ERROR: LeakSanitizer",
            "runtime error:")

@@ -150,12 +150,13 @@ async def test_stats_keys_and_counters_match_reference():
     st = ver.stats()
     ref = TpuBatchVerifier(batch_size=4, max_delay=0.001)
     # the port drops the reference's one-batch gauge and adds the seam's
-    # windowed round-trip sums
-    seam = {"seam_queue_s", "seam_taken", "seam_pipeline_s", "seam_resolved", "seam_handback_s", "seam_calls"}
+    # windowed round-trip sums and the native seam's batches
+    seam = {"seam_queue_s", "seam_taken", "seam_pipeline_s", "seam_resolved", "seam_handback_s", "seam_calls",
+            "native_batches"}
     assert set(st) == (set(ref.stats()) - {"last_dispatch_ms"}) | seam
     await ref.close()
     assert st["seam_taken"] == st["seam_resolved"] == 16 and st["seam_calls"] == 1
-    assert st["batches"] == 4 and st["signatures"] == 16
+    assert st["batches"] == 4 and st["signatures"] == 16 and st["native_batches"] == 0
     assert st["batch_occupancy"] == 1.0 and st["padding_ratio"] == 0.0
     assert st["capacity_free"] == st["max_queue"] and st["queue_depth"] == 0
     assert st["finish_ms_avg"] > 0.0 and st["avg_dispatch_ms"] > 0.0
